@@ -1,0 +1,57 @@
+"""Attention primitives for the ViT backbone and the cross-view decoder.
+
+Counterpart of `gfnet_tpu/ops/attention.py`. `fused_attention` launches the
+hand-written CUDA kernel K1 (`ops/kernels.py`, `csrc/oneshot_attention.cu`)
+for CUDA tensors and runs the plain `scaled_dot_product_attention` for CPU
+tensors. The one semantic that must survive is the "entropy invariance"
+softmax scale, head_dim^-0.5 · log(N) / log(train_avg_length)
+(ref `attention.py:84,213,249`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from gfnet_tpu_torch.ops import kernels
+
+Tensor = torch.Tensor
+
+
+def entropy_invariant_scale(head_dim: int, seq_len: int, train_avg_length: int | None) -> float:
+    scale = head_dim**-0.5
+    if train_avg_length is not None:
+        scale *= math.log(seq_len) / math.log(train_avg_length)
+    return scale
+
+
+def scaled_dot_product_attention(q: Tensor, k: Tensor, v: Tensor, scale: float | None = None) -> Tensor:
+    """Plain version of K1. q, k, v: (B, N, H, D) → (B, N, H, D); logits and
+    softmax in float32, probabilities cast to v's dtype for the PV product."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", probs, v)
+
+
+def fused_attention(q: Tensor, k: Tensor, v: Tensor, scale: float | None = None) -> Tensor:
+    """Non-causal attention over (B, N, H, D): kernel K1 on CUDA tensors,
+    the plain version on CPU tensors."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.is_cuda:
+        return kernels.oneshot_attention(q, k, v, float(scale))
+    return scaled_dot_product_attention(q, k, v, scale)
+
+
+def linear_attention(q: Tensor, k: Tensor, v: Tensor, eps: float = 1e-6) -> Tensor:
+    """elu(x)+1 linear attention in float32 (ref `attention.py:261-291`).
+    q, k, v: (B, N, H, D) → (B, N, H, D)."""
+    q = F.elu(q.float()) + 1
+    k = F.elu(k.float()) + 1
+    kv = torch.einsum("bshd,bshm->bhmd", k, v.float())
+    z = 1.0 / (torch.einsum("blhd,bhd->blh", q, k.sum(1)) + eps)
+    return torch.einsum("blhd,bhmd,blh->blhm", q, kv, z).to(v.dtype)
