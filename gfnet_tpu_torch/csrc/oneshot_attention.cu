@@ -13,16 +13,17 @@
 // stream kv tiles through shared memory with an online softmax (running max
 // and sum, the accumulator rescaled when the max grows).
 //
-// Two paths, chosen per call:
+// Two paths, chosen by type and head dim:
 //  - bf16 with D = 64 (every ViT attention): tensor cores through
 //    `mma.sync.m16n8k16` (bf16 in, float32 accumulate). Four warps own 16 q
 //    rows each; a block walks kv in 64-row tiles staged in shared memory (K
 //    row-major, V transposed, rows padded to 72 so fragment loads hit 32
 //    distinct banks). S = Q·Kᵀ stays in registers, and its accumulator layout
 //    is reused as the A operand of P·V, so probabilities never touch memory.
-//  - everything else (float32, D = 8 or 16): one thread per q row, scalar
-//    FMAs on float32 tiles in shared memory. D = 8 is below the bf16 MMA's
-//    k = 16 and the float32 path keeps full precision.
+//    The caller guarantees the 16-byte alignment its vector loads need.
+//  - float32 at any D, and bf16 with D = 8 or 16: one thread per q row,
+//    scalar FMAs on float32 tiles in shared memory. D = 8 is below the bf16
+//    MMA's k = 16 and the float32 path keeps full precision.
 // Both read q/k/v in place with their batch and token strides, so the
 // (B,N,H,D)→(B·H,N,D) relayout of the TPU version, and the split of a fused
 // qkv projection, cost no copy. TMA, wgmma and pipelined loads are later work.
@@ -36,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -303,24 +306,23 @@ oneshot_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// The tensor-core path reads 16-byte vectors: pointers 16-byte aligned and
-// every stride a multiple of 8 elements.
-bool mma_layout_ok(const void* q, const void* k, const void* v, long long q_bs, long long q_ts,
-                   long long k_bs, long long k_ts, long long v_bs, long long v_ts) {
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  return aligned(q) && aligned(k) && aligned(v) &&
-         (q_bs | q_ts | k_bs | k_ts | v_bs | v_ts) % 8 == 0;
-}
-
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch, int nq,
                    int nk, int heads, long long q_bs, long long q_ts, long long k_bs,
                    long long k_ts, long long v_bs, long long v_ts, float scale,
                    cudaStream_t stream) {
-  const dim3 grid((nq + kRows - 1) / kRows, batch * heads);
-  oneshot_attention_kernel<T, D><<<grid, kRows, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), nq, nk, heads, q_bs, q_ts, k_bs, k_ts, v_bs, v_ts, scale);
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && D == 64) {
+    const dim3 grid((nq + kMmaWarps * 16 - 1) / (kMmaWarps * 16), batch * heads);
+    oneshot_attention_mma_kernel<<<grid, kMmaWarps * 32, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), nq, nk, heads,
+        q_bs, q_ts, k_bs, k_ts, v_bs, v_ts, scale);
+  } else {
+    const dim3 grid((nq + kRows - 1) / kRows, batch * heads);
+    oneshot_attention_kernel<T, D><<<grid, kRows, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), nq, nk, heads, q_bs, q_ts, k_bs, k_ts, v_bs, v_ts, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -347,8 +349,10 @@ cudaError_t dispatch(int head_dim, const void* q, const void* k, const void* v, 
 }  // namespace
 
 // q, k, v: (B, N, H, D) with the head and channel dims packed (strides D, 1);
-// *_bs / *_ts are the batch and token strides in elements. out: contiguous
-// (B, Nq, H, D). Returns the cudaError_t of the launch (0 on success).
+// *_bs / *_ts are the batch and token strides in elements. For bf16 with
+// D = 64 the pointers must be 16-byte aligned and every stride a multiple of 8
+// (the tensor-core path reads 16-byte vectors; the Python wrapper checks it).
+// out: contiguous (B, Nq, H, D). Returns the cudaError_t of the launch.
 extern "C" int gfnet_oneshot_attention(const void* q, const void* k, const void* v, void* out,
                                        int batch, int nq, int nk, int heads, int head_dim,
                                        long long q_bs, long long q_ts, long long k_bs,
@@ -356,15 +360,6 @@ extern "C" int gfnet_oneshot_attention(const void* q, const void* k, const void*
                                        float scale, int is_bf16, void* stream) {
   if (batch <= 0 || nq <= 0 || nk <= 0 || heads <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && head_dim == 64 &&
-      mma_layout_ok(q, k, v, q_bs, q_ts, k_bs, k_ts, v_bs, v_ts)) {
-    const dim3 grid((nq + kMmaWarps * 16 - 1) / (kMmaWarps * 16), batch * heads);
-    oneshot_attention_mma_kernel<<<grid, kMmaWarps * 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), nq, nk, heads,
-        q_bs, q_ts, k_bs, k_ts, v_bs, v_ts, scale);
-    return cudaGetLastError();
-  }
   if (is_bf16)
     return dispatch<__nv_bfloat16>(head_dim, q, k, v, out, batch, nq, nk, heads, q_bs, q_ts,
                                    k_bs, k_ts, v_bs, v_ts, scale, s);

@@ -7,6 +7,8 @@ Counterpart of `gfnet_tpu/matcher/api.py:37-496` (ref `model/network.py:285-414`
   - pass 2 at `upsample_res`: re-entry at scale "8", then the warp stitch;
   - threshold-balanced sampling: Gumbel top-k (exact `torch.topk`) + KDE;
   - batched RANSAC + IRLS on the device.
+Sampling and solving take all pairs of a batch at once, as the JAX
+package's vmapped `_sample_solve_batched_jit` does.
 
 Randomness comes from an explicit `torch.Generator`. The public `sample`
 and `estimate_homography*` draw the Gumbel uniforms and RANSAC indices;
@@ -206,27 +208,29 @@ class GFNetMatcher:
     def _sample_core(self, matches: Tensor, certainty: Tensor, num: int, u_good: Tensor,
                      u_bal: Tensor | None) -> tuple[Tensor, Tensor]:
         """threshold_balanced sampling (ref `network.py:385-414`) with the
-        Gumbel uniforms given: u_good (N,) for the certainty draw, u_bal
-        (n_good,) for the KDE-balanced draw. matches (N, 4), certainty (N,)."""
+        Gumbel uniforms given: u_good (..., N) for the certainty draw, u_bal
+        (..., n_good) for the KDE-balanced draw. matches (..., N, 4),
+        certainty (..., N); leading dims are pairs, sampled all at once."""
         cfg = self.cfg
         if "threshold" in cfg.sample_mode:
             certainty = torch.where(certainty > cfg.sample_thresh, torch.ones_like(certainty), certainty)
-        n_good, n_bal = self._sample_sizes(certainty.shape[0], num)
+        n_good, n_bal = self._sample_sizes(certainty.shape[-1], num)
 
         def gumbel_topk(weights, u, k):
             logw = torch.log(weights.clamp_min(1e-30))
             logw = torch.where(weights <= 0, torch.full_like(logw, -math.inf), logw)
             return torch.topk(logw - torch.log(-torch.log(u)), k).indices
 
-        good_idx = gumbel_topk(certainty, u_good, n_good)
-        good_matches, good_cert = matches[good_idx], certainty[good_idx]
+        def take(m, c, idx):
+            return torch.take_along_dim(m, idx[..., None], dim=-2), torch.take_along_dim(c, idx, dim=-1)
+
+        good_matches, good_cert = take(matches, certainty, gumbel_topk(certainty, u_good, n_good))
         if "balanced" not in cfg.sample_mode:
             return good_matches, good_cert
         density = kde(good_matches, std=0.1)
         p = 1.0 / (density + 1.0)
         p = torch.where(density < 10, torch.full_like(p, 1e-7), p)
-        bal_idx = gumbel_topk(p, u_bal, n_bal)
-        return good_matches[bal_idx], good_cert[bal_idx]
+        return take(good_matches, good_cert, gumbel_topk(p, u_bal, n_bal))
 
     def _draws(self, n: int, num: int, generator: torch.Generator):
         """One pair's random numbers, in order: the Gumbel uniforms of the
@@ -251,21 +255,22 @@ class GFNetMatcher:
     # ----------------------------------------------------------------- solve
     def _solve(self, matches: Tensor, hw_a: tuple[int, int], hw_b: tuple[int, int],
                idx: Tensor) -> Tensor:
-        """Denormalize sampled matches (N, 4) to pixels and solve with the
-        given (K, 4) RANSAC indices → H (3, 3) mapping A pixels to B pixels."""
-        pos_a = denormalize_corner_aligned(matches[:, :2], *hw_a)
-        pos_b = denormalize_corner_aligned(matches[:, 2:], *hw_b)
+        """Denormalize sampled matches (..., N, 4) to pixels and solve with
+        the given (..., K, 4) RANSAC indices → H (..., 3, 3) mapping A pixels
+        to B pixels."""
+        pos_a = denormalize_corner_aligned(matches[..., :2], *hw_a)
+        pos_b = denormalize_corner_aligned(matches[..., 2:], *hw_b)
         return ransac_homography_from_indices(pos_a, pos_b, None, idx)[0]
 
     def _sample_solve(self, warp: Tensor, certainty: Tensor, num: int, hw_a, hw_b,
                       draws: list) -> Tensor:
-        """Per pair: sample `num` matches and solve, with that pair's
-        `_draws` given → (B, 3, 3)."""
-        Hs = []
-        for w, c, (u_good, u_bal, idx) in zip(warp, certainty, draws):
-            matches, _ = self._sample_core(w.reshape(-1, 4), c.reshape(-1), num, u_good, u_bal)
-            Hs.append(self._solve(matches, hw_a, hw_b, idx))
-        return torch.stack(Hs)
+        """Sample `num` matches per pair and solve, all B pairs at once, with
+        each pair's `_draws` given → (B, 3, 3)."""
+        b = warp.shape[0]
+        u_good, u_bal, idx = (None if d[0] is None else torch.stack(d) for d in zip(*draws))
+        matches, _ = self._sample_core(warp.reshape(b, -1, 4), certainty.reshape(b, -1), num,
+                                       u_good, u_bal)
+        return self._solve(matches, hw_a, hw_b, idx)
 
     @torch.inference_mode()
     def estimate_homography_batched(self, im_A_raw, im_B_raw, num_matches: int = 5000,

@@ -6,7 +6,8 @@ shared library with a plain C interface, loaded with `ctypes`:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c <src>.cu
     nvcc -shared -o libgfnet_kernels.so *.o
 
-one `nvcc` per source, all started together. The library lands in
+one `nvcc` per source, all started together, so the build takes as long as
+its slowest source however many kernels later slices add. The library lands in
 `gfnet_tpu_torch/_build/<hash of sources and flags>/`, so an edited source
 rebuilds and an unchanged one loads at once.
 
@@ -25,8 +26,6 @@ import math
 import os
 import shutil
 import subprocess
-import tempfile
-import threading
 import time
 from pathlib import Path
 
@@ -42,7 +41,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIB_NAME = "libgfnet_kernels.so"
 
 _lib = None
-_lib_lock = threading.Lock()
 build_info: dict = {}
 
 
@@ -62,32 +60,26 @@ def _source_hash() -> str:
 
 
 def _build(out_dir: Path) -> None:
+    """One `nvcc` per source, all started together, then one link. The
+    library is linked under a name of this process and renamed into place,
+    so a concurrent loader never sees a half-written file."""
     nvcc = _nvcc()
-    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=out_dir.parent))
-    try:
-        procs = []
-        for name in SOURCES:
-            obj = tmp / (Path(name).stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
-            procs.append((name, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                      stderr=subprocess.STDOUT, text=True)))
-        outs = [proc.communicate()[0] for _, _, proc in procs]  # every compile ends here
-        for (name, _, proc), out in zip(procs, outs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}:\n{out}")
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp / LIB_NAME),
-                               *(str(obj) for _, obj, _ in procs)],
+    out_dir.mkdir(parents=True, exist_ok=True)
+    objs = [out_dir / f"{Path(name).stem}.{os.getpid()}.o" for name in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        (tmp / "build.log").write_text(
-            "\n".join(f"== {name}\n{out}" for (name, _, _), out in zip(procs, outs)))
-        os.replace(tmp, out_dir)  # atomic: a concurrent build of the same hash loses cleanly
-    except OSError:
-        if not (out_dir / LIB_NAME).exists():
-            raise
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+             for name, obj in zip(SOURCES, objs)]
+    outs = [proc.communicate()[0] for proc in procs]
+    for name, proc, out in zip(SOURCES, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+    lib = out_dir / f"{LIB_NAME}.{os.getpid()}"
+    link = subprocess.run([nvcc, "-shared", "-o", str(lib), *map(str, objs)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    (out_dir / "build.log").write_text("\n".join(f"== {n}\n{o}" for n, o in zip(SOURCES, outs)))
+    os.replace(lib, out_dir / LIB_NAME)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -102,22 +94,20 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; records the build time
     and the compiler's register/shared-memory report in `build_info`."""
     global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        out_dir = BUILD_ROOT / _source_hash()
-        t0 = time.perf_counter()
-        built = not (out_dir / LIB_NAME).exists()
-        if built:
-            BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-            _build(out_dir)
-        lib = ctypes.CDLL(str(out_dir / LIB_NAME))
-        _declare(lib)
-        build_info.update(path=str(out_dir / LIB_NAME), built=built,
-                          seconds=time.perf_counter() - t0,
-                          log=(out_dir / "build.log").read_text() if (out_dir / "build.log").exists() else "")
-        _lib = lib
-        return lib
+    if _lib is not None:
+        return _lib
+    out_dir = BUILD_ROOT / _source_hash()
+    t0 = time.perf_counter()
+    built = not (out_dir / LIB_NAME).exists()
+    if built:
+        _build(out_dir)
+    lib = ctypes.CDLL(str(out_dir / LIB_NAME))
+    _declare(lib)
+    build_info.update(path=str(out_dir / LIB_NAME), built=built,
+                      seconds=time.perf_counter() - t0,
+                      log=(out_dir / "build.log").read_text() if (out_dir / "build.log").exists() else "")
+    _lib = lib
+    return lib
 
 
 def _check(err: int, what: str) -> None:
@@ -145,7 +135,9 @@ def oneshot_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     """K1: softmax(q·kᵀ·scale)·v over (B, N, H, D) CUDA tensors → contiguous
     (B, Nq, H, D). Takes float32 or bf16 and D in {8, 16, 64}; the head and
     channel dims must be packed (strides D, 1), the batch and token strides
-    are free (a slice of a fused qkv projection is read in place)."""
+    are free (a slice of a fused qkv projection is read in place). bf16 with
+    D=64 runs on tensor cores: its pointers must be 16-byte aligned and its
+    batch and token strides multiples of 8, or it raises."""
     _require_cuda("oneshot_attention", q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"oneshot_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
@@ -159,6 +151,11 @@ def oneshot_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     for t in (q, k, v):
         if t.stride(3) != 1 or t.stride(2) != d:
             raise ValueError("oneshot_attention: head and channel dims must be packed")
+        # the tensor-core path (bf16, D=64) reads 16-byte vectors
+        if q.dtype == torch.bfloat16 and d == 64 and (
+                t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8):
+            raise ValueError("oneshot_attention: bf16 D=64 needs 16-byte aligned pointers "
+                             "and batch/token strides that are multiples of 8")
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     lib = load_library()
     err = lib.gfnet_oneshot_attention(

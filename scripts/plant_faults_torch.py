@@ -1,0 +1,105 @@
+"""What `chip_smoke.py`'s tolerance gates read when a kernel is slightly wrong.
+
+Plants small faults at run time, by wrapping the kernel launchers of
+`gfnet_tpu_torch.ops.kernels` (no file changes), and prints, one JSON line
+each, the error the matching gate of `chip_smoke.py` would read beside that
+gate's tolerance:
+
+  - K1 with its softmax scale off by 1%, and with the last 64 keys dropped,
+    at the ViT and cross-view shapes of phase 3 (bf16);
+  - K2 with the centre tap of every window zeroed, at two shapes of phase 4;
+  - the tiny config's `match()` on CUDA against the CPU (phase 5), with K1's
+    scale off by 1% and with K2's centre tap zeroed.
+
+Exits 1 if a planted fault stays inside its gate. Needs one GPU; run from the
+repository root:
+
+    python3 scripts/plant_faults_torch.py
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from gfnet_tpu_torch.ops import kernels  # noqa: E402
+from gfnet_tpu_torch.ops.attention import entropy_invariant_scale, scaled_dot_product_attention  # noqa: E402
+from gfnet_tpu_torch.ops.local_correlation import _local_correlation_patch  # noqa: E402
+
+REAL_K1, REAL_K2 = kernels.oneshot_attention, kernels.local_corr
+
+
+def k1_scale_off(q, k, v, scale):
+    return REAL_K1(q, k, v, scale * 1.01)
+
+
+def k1_tail_dropped(q, k, v, scale):
+    return REAL_K1(q, k[:, :-64], v[:, :-64], scale)
+
+
+def k2_centre_zeroed(query, target, flow, radius):
+    out = REAL_K2(query, target, flow, radius)
+    out[..., (2 * radius + 1) ** 2 // 2] = 0
+    return out
+
+
+def report(fault: str, gate: str, err: float, tol: float, caught: list) -> None:
+    caught.append(err > tol)
+    print(json.dumps({"fault": fault, "gate": gate, "max_abs_err": err, "atol": tol,
+                      "caught": err > tol}), flush=True)
+
+
+def kernel_faults(caught: list) -> None:
+    gen = torch.Generator("cuda").manual_seed(1)
+    for b, n, h, d in ((2, 1601, 16, 64), (2, 1600, 8, 8)):
+        scale = 64**-0.5 if d == 64 else entropy_invariant_scale(8, n, 1024)
+        q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        want = scaled_dot_product_attention(q.float(), k.float(), v.float(), scale)
+        for fault in (k1_scale_off, k1_tail_dropped):
+            err = (fault(q, k, v, scale).float() - want).abs().max().item()
+            report(f"{fault.__name__} {[b, n, h, d]}", "k1", err, chip_smoke.K1_ATOL, caught)
+    for r, c, t, g in ((7, 64, 32, 32), (2, 16, 280, 160)):
+        query = torch.randn((2, g, g, c), generator=gen, device="cuda").to(torch.bfloat16)
+        target = torch.randn((2, t, t, c), generator=gen, device="cuda").to(torch.bfloat16)
+        flow = torch.rand((2, g, g, 2), generator=gen, device="cuda") * 2.2 - 1.1
+        err = (k2_centre_zeroed(query, target, flow, r)
+               - _local_correlation_patch(query, target, flow, r)).abs().max().item()
+        report(f"k2_centre_zeroed r{r} q{g} t{t} C{c}", "k2", err, chip_smoke.K2_ATOL, caught)
+
+
+def tiny_faults(caught: list) -> None:
+    gpu, cpu, a, b = chip_smoke.tiny_setup(torch, np)
+    wc, cc = cpu.match(a, b)
+    for name, fault in (("oneshot_attention", k1_scale_off), ("local_corr", k2_centre_zeroed)):
+        fault.launches = 0  # the real launcher counts on the name it is called by
+        setattr(kernels, name, fault)
+        try:
+            wg, cg = gpu.match(a, b)
+        finally:
+            setattr(kernels, name, REAL_K1 if name == "oneshot_attention" else REAL_K2)
+        err = max((wg.cpu() - wc).abs().max().item(), (cg.cpu() - cc).abs().max().item())
+        report(f"tiny match with {fault.__name__}", "tiny_cuda_vs_cpu", err, chip_smoke.E2E_ATOL, caught)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("plant_faults_torch: needs a GPU", file=sys.stderr)
+        return 2
+    chip_smoke.phase_device(torch)
+    caught: list = []
+    kernel_faults(caught)
+    tiny_faults(caught)
+    return 0 if all(caught) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -50,6 +50,14 @@ def test_oneshot_attention_reads_strided_qkv(cuda_device):
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
 
 
+def test_oneshot_attention_refuses_misaligned_bf16_d64(cuda_device):
+    """The tensor-core path reads 16-byte vectors; it raises on a layout it cannot read."""
+    buf = torch.zeros(1 + 2 * 40 * 2 * 64, dtype=torch.bfloat16, device=cuda_device)
+    q = buf[1:].view(2, 40, 2, 64)  # 2 bytes past an aligned address
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.oneshot_attention(q, q, q, 0.125)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("radius,g,hw,c", [(7, 32, 32, 64), (2, 40, 70, 16), (1, 5, 9, 8)])
 def test_local_corr_matches_plain(cuda_device, dtype, radius, g, hw, c):

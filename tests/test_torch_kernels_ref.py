@@ -125,16 +125,15 @@ def test_build_compiles_each_source_into_the_hashed_dir(tmp_path, monkeypatch, f
     nvcc.chmod(0o755)
     monkeypatch.setenv("PATH", f"{nvcc.parent}:{os.environ['PATH']}")
     monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path / "_build")
-    kernels.BUILD_ROOT.mkdir()
     out_dir = kernels.BUILD_ROOT / kernels._source_hash()
     if fail:
         monkeypatch.setenv("FAKE_NVCC_FAIL", fail)
         with pytest.raises(RuntimeError, match="nvcc failed on local_corr.cu"):
             kernels._build(out_dir)
-        assert not out_dir.exists() and list(kernels.BUILD_ROOT.iterdir()) == []
+        assert not (out_dir / kernels.LIB_NAME).exists()
         return
     kernels._build(out_dir)
     link = (out_dir / kernels.LIB_NAME).read_text()
-    assert all(f"{name[:-3]}.o" in link for name in kernels.SOURCES)
+    assert "-shared" in link and all(f"{name[:-3]}.{os.getpid()}.o" in link for name in kernels.SOURCES)
     assert all(f"== {name}" in (out_dir / "build.log").read_text() for name in kernels.SOURCES)
-    assert "arch=compute_90a,code=sm_90a" in (out_dir / "oneshot_attention.o").read_text()
+    assert "arch=compute_90a,code=sm_90a" in (out_dir / f"oneshot_attention.{os.getpid()}.o").read_text()

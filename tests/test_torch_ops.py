@@ -125,6 +125,21 @@ def test_ransac_generator_draw_and_corner_error():
     assert ce_t == pytest.approx(ce_j, abs=1e-3) and ce_t < 1.0
 
 
+def test_ransac_batched_equals_each_pair():
+    """B pairs solved as one batch give each pair's own solve."""
+    rng = np.random.default_rng(12)
+    pairs = [_homography_pair(rng) for _ in range(3)]
+    src = torch.stack([T(p[1]) for p in pairs])
+    dst = torch.stack([T(p[2]) for p in pairs])
+    idx = torch.randint(0, src.shape[1], (3, 512, 4), generator=torch.Generator().manual_seed(1))
+    H, inl = thom.ransac_homography_from_indices(src, dst, None, idx)
+    assert H.shape == (3, 3, 3) and inl.shape == src.shape[:2]
+    for i in range(3):
+        H_i, inl_i = thom.ransac_homography_from_indices(src[i], dst[i], None, idx[i])
+        assert float(thom.corner_error(H[i], H_i, 200.0, 160.0)) < 1e-3
+        assert (inl[i] != inl_i).sum() <= 2
+
+
 @pytest.mark.parametrize("mode,antialias,src,dst", [
     ("bilinear", False, (17, 23), (40, 31)),
     ("bilinear", False, (40, 36), (12, 9)),
@@ -180,3 +195,11 @@ def test_kde_matches_jax(n, block):
     want = N(jax_kde(jnp.asarray(x), std=0.1, block=block))
     # exp(-50 d²) of a float32 cross term: ~1e-5 relative
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_kde_batched_equals_each_member():
+    rng = np.random.default_rng(13)
+    x = T(rng.uniform(-1, 1, (3, 700, 4)))
+    got = torch_kde(x, std=0.1, block=512)  # 170 rows of each member per step
+    for i in range(3):
+        torch.testing.assert_close(got[i], torch_kde(x[i], std=0.1, block=512), rtol=1e-5, atol=1e-5)
