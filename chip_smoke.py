@@ -22,7 +22,16 @@ Phases, one JSON line each:
      448² pair and `estimate_homography_batched` on 8, with launch counts,
      throughput and peak memory; then, for B=1 and B=8, each phase (pass 1,
      pass 2, sample + solve) timed alone and profiled once for its device
-     time, busy share and top kernels.
+     time, busy share and top kernels;
+  7. K3 (local_corr_bwd) against its plain version at the four shapes the
+     train step gives it (B=8, float32) and with a bf16 target, plus K2 at
+     those float32 shapes and exact zeros for out-of-range and NaN flow;
+  8. one train step of the tiny config on CUDA (kernels) against the CPU
+     (plain versions), float32: the loss and every head gradient;
+  9. the trainer at the flagship width: a few steps of `cli.train.train_loop`
+     at B=8, 448², bf16, on a synthetic homography stream made on the card,
+     with checkpoints, a restore that compares equal, the launch counts per
+     step, step time, peak memory and one profiled step.
 Then a line with the per-kernel summary, and as the last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero without it.
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -65,6 +74,18 @@ K2_ATOL = 1e-4
 # tap zeroed 0.756. With a seeded random head the refiners add ~1e-6, and a
 # zeroed K2 tap read the same as a sound run, so the trained head is used.
 E2E_ATOL = 1e-3
+# K3: float32 sums of up to (2r+2)²·C products, in another order than the
+# plain version's einsum. Sound runs read at most 4.3e-6; the 1/√C scale off
+# by 1% reads 0.061 and more, the centre tap of the gradient dropped 1.05.
+K3_ATOL = 1e-4
+# One train step of the tiny config, float32, TF32 off, CUDA against CPU:
+# the loss relative to the CPU's (sound runs read 7.1e-8), and each leaf's
+# gradient relative to the largest gradient entry of its top-level module on
+# the CPU. Sound runs read 3.7e-3 (the refiners amplify summation order, as
+# in the forward gate); K3's scale off by 1% reads 1.13e-2, the centre tap of
+# its incoming gradient dropped 0.53.
+TINY_LOSS_RTOL = 1e-4
+TINY_GRAD_RTOL = 8e-3
 
 
 def emit(phase: str, **kw) -> None:
@@ -123,10 +144,13 @@ def phase_k1(torch) -> dict:
 
     gen = torch.Generator("cuda").manual_seed(1)
     # (B, N, H, D, scale) as the main path calls K1: the ViT at 448²/560² on
-    # the stacked pair, the cross-view decoder with both directions stacked
+    # the stacked pair, the cross-view decoder with both directions stacked;
+    # then the train step's two shapes (8 pairs at 448²)
     shapes = [(2, 1025, 16, 64, 64**-0.5), (2, 1601, 16, 64, 64**-0.5),
               (2, 1024, 8, 8, entropy_invariant_scale(8, 1024, 1024)),
-              (2, 1600, 8, 8, entropy_invariant_scale(8, 1600, 1024))]
+              (2, 1600, 8, 8, entropy_invariant_scale(8, 1600, 1024)),
+              (16, 1025, 16, 64, 64**-0.5),
+              (16, 1024, 8, 8, entropy_invariant_scale(8, 1024, 1024))]
     rows = []
     for b, n, h, d, scale in shapes:
         q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -147,7 +171,7 @@ def phase_k1(torch) -> dict:
         if not err <= K1_ATOL:
             raise AssertionError(f"K1 {row['shape']}: max abs err {err} > {K1_ATOL}")
         rows.append(row)
-    return max(rows, key=lambda r: r["kernel_ms"])
+    return max(rows[:4], key=lambda r: r["kernel_ms"])  # the inference path's slowest shape
 
 
 def k2_active_cells(torch, flow, h: int, w: int, r: int) -> int:
@@ -251,8 +275,8 @@ def phase_tiny(torch, np) -> None:
     cerr = (cg.cpu() - cc).abs().max().item()
     emit("tiny_cuda_vs_cpu", warp_max_abs_err=werr, certainty_max_abs_err=cerr, atol=E2E_ATOL,
          launches=counts, warp_shape=list(wg.shape))
-    if min(counts.values()) == 0:
-        raise AssertionError(f"tiny path on CUDA skipped a kernel: {counts}")
+    if counts["oneshot_attention"] == 0 or counts["local_corr"] == 0 or counts["local_corr_bwd"] != 0:
+        raise AssertionError(f"tiny inference path on CUDA: launches {counts}")
     if not (werr <= E2E_ATOL and cerr <= E2E_ATOL):
         raise AssertionError(f"tiny path CUDA vs CPU: warp {werr}, certainty {cerr} > {E2E_ATOL}")
 
@@ -275,6 +299,7 @@ def phase_flagship(torch, np) -> dict:
     passes = 2 if cfg.upsample_preds else 1
     want_k1 = passes * (cfg.dino.depth + cfg.dino.decoder_cfg.num_cross_attn)
     want_k2 = sum(r > 0 for r in cfg.matcher.radius) + sum(r > 0 for r in cfg.matcher.radius[1:])
+    want = {"oneshot_attention": want_k1, "local_corr": want_k2, "local_corr_bwd": 0}
 
     m.estimate_homography(a1, b1)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
@@ -295,11 +320,11 @@ def phase_flagship(torch, np) -> dict:
           and bool(torch.isfinite(H).all()) and bool(torch.isfinite(Hb).all()))
     emit("flagship_outputs", H=H.cpu().tolist(), H_batched_finite=bool(torch.isfinite(Hb).all()),
          H_batched_shape=list(Hb.shape), launches_single=counts, launches_batched=counts_b,
-         expected_launches={"oneshot_attention": want_k1, "local_corr": want_k2})
+         expected_launches=want)
     if not ok:
         raise AssertionError("flagship homographies are not finite (3,3)/(8,3,3)")
-    if counts != {"oneshot_attention": want_k1, "local_corr": want_k2} or counts_b != counts:
-        raise AssertionError(f"launch counts {counts} / {counts_b}, expected {want_k1}/{want_k2}")
+    if counts != want or counts_b != counts:
+        raise AssertionError(f"launch counts {counts} / {counts_b}, expected {want}")
 
     # throughput (host clock around synchronized calls)
     def timed(fn, reps):
@@ -319,11 +344,20 @@ def phase_flagship(torch, np) -> dict:
               "max_memory_allocated_single": peak_single,
               "max_memory_allocated_batched": peak_batched, "launches": counts}
     emit("flagship", **result)
-    return result
+    return result, m
 
 
 def device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
+
+
+def device_kernel_events(torch, prof) -> list:
+    """The profile's device-side events with time on the card, without the
+    ranges that span other kernels (`Optimizer.step#...`), which would count
+    their kernels twice."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
 
 
 def phase_split(torch, m, x, y) -> dict:
@@ -356,8 +390,7 @@ def phase_split(torch, m, x, y) -> dict:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            evts = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+            evts = device_kernel_events(torch, prof)
             kernel_ms = sum(device_us(e) for e in evts) / 1e3
             wall = statistics.median(walls)
             top = sorted(evts, key=device_us, reverse=True)[:8]
@@ -368,6 +401,253 @@ def phase_split(torch, m, x, y) -> dict:
                                           "count": e.count} for e in top]}
             emit("flagship_split", batch=bsz, part=name, **out[name])
     return out
+
+
+# (radius, C, target side, grid side) of every refiner with r > 0 in the train
+# step at 448², B = 8 pairs (symmetric=False)
+TRAIN_CORR_SHAPES = [(7, 64, 32, 32), (6, 64, 56, 32), (4, 32, 112, 64), (2, 16, 224, 128)]
+TRAIN_BATCH = 8
+
+
+def phase_k3(torch) -> dict:
+    """K3 against `local_corr_dq_plain` at the train step's shapes, and K2 at
+    the same float32 shapes (phase 4 covers the inference shapes in bf16).
+    Returns the slowest K3 row."""
+    from gfnet_tpu_torch.ops import kernels
+    from gfnet_tpu_torch.ops.local_correlation import _local_correlation_patch, local_corr_dq_plain
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    rows = []
+    cases = [(*shape, torch.float32) for shape in TRAIN_CORR_SHAPES] + [(6, 64, 56, 32, torch.bfloat16)]
+    for r, c, t, g, tdt in cases:
+        b, taps = TRAIN_BATCH, (2 * r + 1) ** 2
+        query = torch.randn((b, g, g, c), generator=gen, device="cuda")
+        target = torch.randn((b, t, t, c), generator=gen, device="cuda").to(tdt)
+        flow = torch.rand((b, g, g, 2), generator=gen, device="cuda") * 2.2 - 1.1
+        grad = torch.randn((b, g, g, taps), generator=gen, device="cuda")
+        active = k2_active_cells(torch, flow, t, t, r)
+        got = kernels.local_corr_bwd(grad, target, flow, r)
+        want = local_corr_dq_plain(grad, target, flow, r)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+
+        def autograd_plain():
+            q = query.detach().requires_grad_()
+            _local_correlation_patch(q, target.float(), flow, r).backward(grad)
+
+        row = {"radius": r, "grad": [b, g, g, taps], "target": [b, t, t, c],
+               "target_dtype": str(tdt).split(".")[-1], "max_abs_err": err, "atol": K3_ATOL,
+               "kernel_ms": cuda_ms(torch, lambda: kernels.local_corr_bwd(grad, target, flow, r), 20),
+               "plain_ms": cuda_ms(torch, lambda: local_corr_dq_plain(grad, target, flow, r), 3),
+               "autograd_plain_ms": cuda_ms(torch, autograd_plain, 3), "library_ms": None,
+               "active_cells": active}
+        # per active cell: the spread (7 operations a tap) and one multiply-add
+        # per patch value; bytes: grad, target, flow read once, dq written once
+        flops = active * (2 * (2 * r + 2) ** 2 * c + 7 * taps)
+        nbytes = 4 * (grad.numel() + flow.numel() + got.numel()) + target.element_size() * target.numel()
+        row["bound_ms"], row["bound_by"] = bound(flops, PEAK_F32_FLOPS, nbytes)
+        emit("k3", **row)
+        if not err <= K3_ATOL:
+            raise AssertionError(f"K3 r={r} t={t} g={g} {tdt}: max abs err {err} > {K3_ATOL}")
+        rows.append(row)
+        if tdt != torch.float32:
+            continue
+        out = kernels.local_corr(query, target, flow, r)
+        err2 = (out - _local_correlation_patch(query, target, flow, r)).abs().max().item()
+        row2 = {"radius": r, "query": [b, g, g, c], "target": [b, t, t, c], "dtype": "float32",
+                "max_abs_err": err2, "atol": K2_ATOL,
+                "kernel_ms": cuda_ms(torch, lambda: kernels.local_corr(query, target, flow, r), 20),
+                "plain_ms": cuda_ms(torch, lambda: _local_correlation_patch(query, target, flow, r), 3),
+                "library_ms": None, "active_cells": active}
+        nbytes2 = 4 * (query.numel() + target.numel() + flow.numel() + out.numel())
+        row2["bound_ms"], row2["bound_by"] = bound(flops, PEAK_F32_FLOPS, nbytes2)
+        emit("k2_train", **row2)
+        if not err2 <= K2_ATOL:
+            raise AssertionError(f"K2 float32 r={r} t={t} g={g}: max abs err {err2} > {K2_ATOL}")
+    for name, value in (("far_out_of_range", 5.0), ("nan", math.nan)):
+        grad = torch.randn((2, 32, 32, 225), generator=gen, device="cuda")
+        target = torch.randn((2, 32, 32, 64), generator=gen, device="cuda")
+        flow = torch.full((2, 32, 32, 2), value, device="cuda")
+        zeros = bool((kernels.local_corr_bwd(grad, target, flow, 7) == 0).all().item())
+        emit("k3_zero_window", case=name, all_zero=zeros)
+        if not zeros:
+            raise AssertionError(f"K3 {name} flow did not give an all-zero gradient")
+    return max(rows, key=lambda r: r["kernel_ms"])
+
+
+def synth_batch(torch, np, rng, b: int, res: int) -> dict:
+    """A training batch made on the card: seeded smooth images as view A,
+    a seeded four-point homography per pair (corners moved by up to 15% of
+    the side), view B = view A warped by it, both shipped as uint8 with
+    H_s2t in the corner-aligned pixel convention the loss expects."""
+    from gfnet_tpu_torch.core.geometry import get_perspective_transform, warp_perspective
+
+    im_a = torch.from_numpy(smooth_images(np, rng, b, res, res)).cuda()
+    side = res - 1.0
+    corners = np.array([[0, 0], [side, 0], [side, side], [0, side]], np.float32)
+    moved = corners + rng.uniform(-0.15 * res, 0.15 * res, (b, 4, 2)).astype(np.float32)
+    H = get_perspective_transform(torch.from_numpy(np.broadcast_to(corners, (b, 4, 2)).copy()).cuda(),
+                                  torch.from_numpy(moved).cuda())
+    im_b = warp_perspective(im_a, H, (res, res), align_corners=True)
+    to_u8 = lambda t: (t.clamp(0, 1) * 255.0 + 0.5).to(torch.uint8)
+    return {"im_A": to_u8(im_a), "im_B": to_u8(im_b), "H_s2t": H}
+
+
+def tiny_train_compare(torch, np) -> dict:
+    """One train step of the tiny config (trained tiny head) on CUDA against
+    the CPU on the same batch: the loss and every head gradient. The clip is
+    set out of reach, so `.grad` holds the raw gradients after the step."""
+    from gfnet_tpu_torch.config import TrainConfig
+    from gfnet_tpu_torch.ops import kernels
+    from gfnet_tpu_torch.train.loss import RobustLoss
+    from gfnet_tpu_torch.train.state import create_train_state
+    from gfnet_tpu_torch.train.step import make_train_step
+
+    gpu, cpu, _, _ = tiny_setup(torch, np)
+    res = gpu.cfg.initial_res[0]
+    batch = {k: v.cpu() for k, v in synth_batch(torch, np, np.random.default_rng(8), 4, res).items()}
+    tcfg = TrainConfig(grad_clip_norm=1e30)
+    out = {}
+    for name, m in (("cuda", gpu), ("cpu", cpu)):
+        state = create_train_state(m.head, tcfg, 4)
+        kernels.reset_launch_counts()
+        _, metrics = make_train_step(m, RobustLoss(im_size=res))(state, batch)
+        out[name] = (float(metrics["total_loss"]), kernels.launch_counts(),
+                     {k: p.grad.detach().cpu() for k, p in m.head.named_parameters()})
+    (loss_g, counts, grads_g), (loss_c, counts_cpu, grads_c) = out["cuda"], out["cpu"]
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    # each leaf against the largest gradient entry of its top-level module: a
+    # bias in front of a train-mode BatchNorm has a zero gradient, so its own
+    # size is rounding noise and no scale to measure by
+    top = lambda k: ".".join(k.split(".")[:2 if k.startswith("conv_refiner") else 1])
+    scale: dict = {}
+    for k, g in grads_c.items():
+        scale[top(k)] = max(scale.get(top(k), 0.0), g.abs().max().item())
+    rel = {k: (grads_g[k] - grads_c[k]).abs().max().item() / scale[top(k)] for k in grads_c}
+    worst = max(rel, key=rel.get)
+    return {"loss_cuda": loss_g, "loss_cpu": loss_c, "loss_rel_err": loss_rel,
+            "loss_rtol": TINY_LOSS_RTOL, "grad_leaves": len(rel), "grad_max_rel_err": rel[worst],
+            "grad_worst_leaf": worst, "grad_rtol": TINY_GRAD_RTOL,
+            "grad_worst_leaves": {k: rel[k] for k in sorted(rel, key=rel.get, reverse=True)[:5]},
+            "launches": counts, "launches_cpu": counts_cpu}
+
+
+def phase_tiny_grads(torch, np) -> None:
+    r = tiny_train_compare(torch, np)
+    emit("tiny_train_cuda_vs_cpu", **r)
+    if min(r["launches"].values()) == 0 or any(r["launches_cpu"].values()):
+        raise AssertionError(f"tiny train step: launches on CUDA {r['launches']}, on the CPU {r['launches_cpu']}")
+    if not (math.isfinite(r["loss_cuda"]) and r["loss_rel_err"] <= TINY_LOSS_RTOL
+            and r["grad_max_rel_err"] <= TINY_GRAD_RTOL):
+        raise AssertionError(f"tiny train step CUDA vs CPU: loss rel {r['loss_rel_err']}, "
+                             f"grad rel {r['grad_max_rel_err']} at {r['grad_worst_leaf']}")
+
+
+def phase_trainer(torch, np, m) -> dict:
+    """The trainer at the flagship width: `cli.train.train_loop` over a
+    synthetic stream, B=8 at 448², bf16, head from the trained flagship
+    weights, the flagship fine-tune recipe (lr_per_sample 1.25e-4, clip 0.1)."""
+    import statistics
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfnet_tpu_torch.cli.train import train_loop
+    from gfnet_tpu_torch.config import TrainConfig
+    from gfnet_tpu_torch.models.common import init_params
+    from gfnet_tpu_torch.models.gfnet import GFNet
+    from gfnet_tpu_torch.ops import kernels
+    from gfnet_tpu_torch.train.checkpoint import Checkpointer
+    from gfnet_tpu_torch.train.loss import RobustLoss
+    from gfnet_tpu_torch.train.state import create_train_state
+    from gfnet_tpu_torch.train.step import make_train_step
+
+    cfg, b, res = m.cfg, TRAIN_BATCH, m.cfg.initial_res[0]
+    steps, chunk = 5, 2
+    tcfg = TrainConfig(total_pairs=steps * b, ckpt_every_pairs=chunk * b, per_host_batch_size=b,
+                       lr_per_sample=1.25e-4, grad_clip_norm=0.1)
+    state = create_train_state(m.head, tcfg, b)
+    step_fn = make_train_step(m, RobustLoss(im_size=res))
+    with_grad = sum(r > 0 for r in cfg.matcher.radius)
+    cross = cfg.dino.decoder_cfg.num_cross_attn
+    # the feature extraction and each refiner run twice (recomputed in backward)
+    want = {"oneshot_attention": cfg.dino.depth + 2 * cross, "local_corr": 2 * with_grad,
+            "local_corr_bwd": with_grad}
+    before = {k: v.detach().clone() for k, v in m.head.state_dict().items()}
+    rng = np.random.default_rng(9)
+    log: list = []
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        log.append({"step": state.step, "wall_ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": kernels.launch_counts(),
+                    **{k: float(v) for k, v in metrics.items()}})
+        emit("train_step", **log[-1])
+        return state, metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Checkpointer(tmp, "smoke")
+        train_loop(state, timed_step, (synth_batch(torch, np, rng, b, res) for _ in range(steps)),
+                   ckpt, steps, chunk, b)
+        saved = sorted(Path(ckpt.dir).iterdir())
+        fresh = init_params(GFNet(cfg, dtype=m.dtype), torch.Generator().manual_seed(1)).to(m.device)
+        restored = Checkpointer(tmp, "smoke").restore(create_train_state(fresh, tcfg, b))
+    peak = torch.cuda.max_memory_allocated()
+
+    now = m.head.state_dict()
+    same = (restored is not None and restored.step == state.step
+            and all(torch.equal(v, restored.head.state_dict()[k]) for k, v in now.items())
+            and all(torch.equal(a[key], bb[key])
+                    for a, bb in zip(state.optimizer.state_dict()["state"].values(),
+                                     restored.optimizer.state_dict()["state"].values())
+                    for key in ("exp_avg", "exp_avg_sq")))
+    moved_params = sum(not torch.equal(p.detach(), before[k]) for k, p in m.head.named_parameters())
+    moved_stats = sum(not torch.equal(v, before[k]) for k, v in m.head.named_buffers())
+    losses = [r["total_loss"] for r in log]
+    counts_ok = all(r["launches"] == want for r in log)
+    walls = [r["wall_ms"] for r in log[1:]]  # the first step warms up cuDNN and the allocator
+
+    batch = synth_batch(torch, np, rng, b, res)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    evts = device_kernel_events(torch, prof)
+    kernel_ms = sum(device_us(e) for e in evts) / 1e3
+    top = sorted(evts, key=device_us, reverse=True)[:12]
+    ours = {n: sum(device_us(e) for e in evts if n in e.key) / 1e3
+            for n in ("oneshot_attention", "local_corr_kernel", "local_corr_bwd_kernel")}
+    result = {"steps": len(log), "batch": b, "res": res, "step_ms_median": statistics.median(walls),
+              "step_ms_runs": walls, "pairs_per_s": b / (statistics.median(walls) / 1e3),
+              "max_memory_allocated": peak, "losses": losses, "launches_per_step": log[-1]["launches"],
+              "expected_launches": want, "checkpoints": [f.name for f in saved],
+              "restore_equal": bool(same), "params_moved": moved_params, "stats_moved": moved_stats,
+              "profiled_step": {"wall_ms": prof_wall, "device_kernel_ms": kernel_ms,
+                                "device_busy_share": kernel_ms / prof_wall,
+                                # the profiler slows the host; against the unprofiled step:
+                                "device_ms_over_median_step": kernel_ms / statistics.median(walls),
+                                "kernel_launches": sum(e.count for e in evts),
+                                "own_kernels_ms": ours,
+                                "top_kernels": [{"name": e.key[:90], "ms": device_us(e) / 1e3,
+                                                 "count": e.count} for e in top]}}
+    emit("trainer", **result)
+    if len(log) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"trainer: {len(log)} steps, losses {losses}")
+    if any(r["nonfinite_grad_leaves"] != 0 for r in log):
+        raise AssertionError("trainer: non-finite gradient leaves")
+    if not counts_ok:
+        raise AssertionError(f"trainer: launches per step {[r['launches'] for r in log]}, expected {want}")
+    if not same:
+        raise AssertionError("trainer: the restored checkpoint differs from the state that was saved")
+    if moved_params == 0 or moved_stats == 0:
+        raise AssertionError("trainer: parameters or running statistics did not move")
+    return result
 
 
 def main() -> int:
@@ -392,24 +672,31 @@ def main() -> int:
         k1 = phase_k1(torch)
         k2 = phase_k2(torch)
         phase_tiny(torch, np)
-        flag = phase_flagship(torch, np)
+        flag, matcher = phase_flagship(torch, np)
+        k3 = phase_k3(torch)
+        phase_tiny_grads(torch, np)
+        train = phase_trainer(torch, np, matcher)
     except Exception:
         traceback.print_exc()
         return 1
+    # launches: per `estimate_homography` call for K1 and K2, per train step
+    # for K3, which only the training path runs
     summary = []
-    for name, row, src, replaces in (
+    for name, row, src, replaces, launches in (
         ("oneshot_attention", k1, "gfnet_tpu_torch/csrc/oneshot_attention.cu",
-         "gfnet_tpu/ops/pallas/oneshot_attention.py:195"),
+         "gfnet_tpu/ops/pallas/oneshot_attention.py:195", flag["launches"]),
         ("local_corr", k2, "gfnet_tpu_torch/csrc/local_corr.cu",
-         "gfnet_tpu/ops/pallas/local_corr.py:219"),
+         "gfnet_tpu/ops/pallas/local_corr.py:219", flag["launches"]),
+        ("local_corr_bwd", k3, "gfnet_tpu_torch/csrc/local_corr_bwd.cu",
+         "gfnet_tpu/ops/pallas/local_corr.py:219 (_bwd_kernel)", train["launches_per_step"]),
     ):
+        shape = row.get("shape") or {k: row[k] for k in ("query", "grad", "target", "radius") if k in row}
         summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": flag["launches"][name], "max_abs_err": row["max_abs_err"],
+                        "launches": launches[name], "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"],
-                        "shape": row.get("shape") or {"query": row["query"], "target": row["target"],
-                                                      "radius": row["radius"]}})
+                        "library_ms": row["library_ms"], "shape": shape,
+                        "launches_per_train_step": train["launches_per_step"][name]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                              "count": info["count"]}}), flush=True)

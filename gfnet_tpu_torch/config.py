@@ -1,8 +1,8 @@
 """Typed configuration for the PyTorch port of the GFNet engine.
 
 An own copy of the JAX package's configuration (`gfnet_tpu/config.py`): the
-same dataclasses, the same reference-JSON schema (`ModelConfig.from_json`)
-and the same `tiny_test_config`. One field is new: `DecoderConfig.kv_norm`
+same dataclasses (`TrainConfig` included), the same reference-JSON schema
+(`ModelConfig.from_json`) and the same `tiny_test_config`. One field is new: `DecoderConfig.kv_norm`
 carries the parameter-free k/v standardization that the JAX package reads
 from the `GFNET_KV_NORM` environment variable (`models/crossview.py:138`).
 """
@@ -170,3 +170,25 @@ def tiny_test_config() -> ModelConfig:
         initial_res=(112, 112),
         upsample_res=(168, 168),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (ref `train.py:60-119`)."""
+
+    total_pairs: int = 2_000_000  # ref train.py:65
+    ckpt_every_pairs: int = 25_000  # ref train.py:67
+    per_host_batch_size: int = 8
+    lr_per_sample: float = 1e-4 / 8  # lr = step_size * 1e-4/8, ref train.py:108
+    weight_decay: float = 0.01
+    grad_clip_norm: float = 0.01  # ref train.py:119
+    ce_weight: float = 0.01
+    alpha: float = 0.5
+    c: float = 1e-4
+    iteration_base: float = 1.0
+    local_largest_scale: int = 8
+    local_dist: dict | None = None  # {1:4, 2:4, 4:8, 8:8}, ref train.py:100
+
+    def __post_init__(self):
+        if self.local_dist is None:
+            object.__setattr__(self, "local_dist", {1: 4, 2: 4, 4: 8, 8: 8})

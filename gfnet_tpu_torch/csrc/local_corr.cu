@@ -25,16 +25,13 @@
 // selection-matrix combine and 8-aligned bf16 staging were Mosaic
 // workarounds and have no counterpart here.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "local_corr_window.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // cells per block
+using gfnet::to_f32;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kWarps = 8;  // cells per block
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -54,16 +51,10 @@ local_corr_kernel(const T* __restrict__ query, const T* __restrict__ target,
   float* dots = qs + channels;
   float* o = out + (long long)cell * taps * taps;
 
-  // Same float32 arithmetic as the TPU `_precompute`, without FMA contraction.
-  const float px = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(flow[2 * cell], 1.f), (float)width), 1.f), 0.5f);
-  const float py = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(flow[2 * cell + 1], 1.f), (float)height), 1.f), 0.5f);
-  const float x0f = floorf(px), y0f = floorf(py);
-  // Patch columns x0f - r .. x0f - r + win - 1; a window that misses the map
-  // (or a non-finite flow) is all zeros. Tested in float: no int overflow.
-  const bool outside = !(isfinite(px) && isfinite(py)) || x0f - radius > width - 1 ||
-                       x0f - radius + win - 1 < 0 || y0f - radius > height - 1 ||
-                       y0f - radius + win - 1 < 0;
-  if (outside) {
+  // The patch's base and corner weights, the same numbers the backward uses.
+  // A window that misses the map (or a non-finite flow) is all zeros.
+  const gfnet::CorrWindow cw = gfnet::corr_window(flow + 2 * (long long)cell, height, width, radius);
+  if (cw.outside) {
     for (int t = lane; t < taps * taps; t += 32) o[t] = 0.f;
     return;
   }
@@ -72,8 +63,7 @@ local_corr_kernel(const T* __restrict__ query, const T* __restrict__ target,
   for (int c = lane; c < channels; c += 32) qs[c] = to_f32(qp[c]);
   __syncwarp();
 
-  const int x0 = (int)x0f - radius;
-  const int y0 = (int)y0f - radius;
+  const int x0 = cw.x0, y0 = cw.y0;
   const T* tb = target + (long long)(cell / cells_per_image) * height * width * channels;
   for (int t = lane; t < win * win; t += 32) {
     const int y = y0 + t / win;
@@ -87,9 +77,7 @@ local_corr_kernel(const T* __restrict__ query, const T* __restrict__ target,
   }
   __syncwarp();
 
-  const float fx = px - x0f, fy = py - y0f;
-  const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
-  const float w10 = fy * (1.f - fx), w11 = fy * fx;
+  const float w00 = cw.w00, w01 = cw.w01, w10 = cw.w10, w11 = cw.w11;
   for (int t = lane; t < taps * taps; t += 32) {
     const float* s = dots + (t / taps) * win + t % taps;
     o[t] = (w00 * s[0] + w01 * s[1] + w10 * s[win] + w11 * s[win + 1]) * inv_sqrt_c;

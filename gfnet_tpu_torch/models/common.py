@@ -102,21 +102,68 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last (channel) dim with running stats,
-    in float32: (x - mean) * (weight * rsqrt(var + eps)) + bias (the JAX
-    `PhaseBN` at phases=1). Returns float32."""
+    """BatchNorm over the last (channel) dim in float32:
+    (x - mean) * (weight * rsqrt(var + eps)) + bias (the JAX `PhaseBN` at
+    phases=1). Returns float32.
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    In eval mode it normalizes with the running statistics. In train mode it
+    normalizes with the batch's moments, var = max(0, E[x²] - mean²), and
+    moves the running statistics towards them by `momentum` (PyTorch's
+    convention: flax's 0.99 is 0.01 here). The running variance takes the
+    biased batch variance, as flax does and `F.batch_norm` does not. While
+    `update_running` is False the running statistics stay put:
+    `checkpoint_module` sets it for the forward that backward repeats."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.01):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.eps = eps
+        self.momentum = momentum
+        self.update_running = True
 
     def forward(self, x: Tensor) -> Tensor:
-        mul = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-        return (x.float() - self.running_mean.float()) * mul + self.bias.float()
+        xf = x.float()
+        if self.training:
+            red = tuple(range(x.dim() - 1))
+            mean = xf.mean(red)
+            var = ((xf * xf).mean(red) - mean * mean).clamp_min(0.0)
+            if self.update_running:
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+                    self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        mul = self.weight.float() * torch.rsqrt(var + self.eps)
+        return (xf - mean) * mul + self.bias.float()
+
+
+def checkpoint_module(module: nn.Module, fn, *args):
+    """`fn(*args)`, a function of `module`'s layers, with its activations
+    recomputed in backward (`torch.utils.checkpoint`) instead of kept. The
+    repeated forward normalizes with the same batch moments but leaves the
+    BatchNorm running statistics alone, so a step updates them once. Calls
+    nest: an inner call never switches on what an outer repeat switched off."""
+    from torch.utils.checkpoint import checkpoint
+
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    runs = 0
+
+    def run(*a):
+        nonlocal runs
+        runs += 1
+        before = [m.update_running for m in norms]
+        for m, was in zip(norms, before):
+            m.update_running = was and runs == 1
+        try:
+            return fn(*a)
+        finally:
+            for m, was in zip(norms, before):
+                m.update_running = was
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class Act(nn.Module):

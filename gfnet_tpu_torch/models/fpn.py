@@ -1,8 +1,9 @@
-"""Full-resolution conv FPN encoder/decoder, inference only.
+"""Full-resolution conv FPN encoder/decoder.
 
 Counterpart of the plain path of `gfnet_tpu/models/fpn.py` (ref
-`model/FPN.py`): conv → BatchNorm (running stats) → activation blocks,
-NHWC. The JAX package's space-to-depth branches are TPU lane-padding
+`model/FPN.py`): conv → BatchNorm → activation blocks, NHWC. The BatchNorms
+use batch statistics in train mode (`nn.Module.train()`) and running ones in
+eval mode; their momentum is 0.1 (flax 0.9, `models/fpn.py:73`). The JAX package's space-to-depth branches are TPU lane-padding
 lowerings of the same math and have no counterpart here. Module names follow
 the reference state dict: the encoder's blocks hold `conv`/`bn`, the
 decoder's and the merge layer's are `Sequential(conv, bn, act)` ("0", "1").
@@ -29,7 +30,7 @@ def conv_bn_act(in_ch: int, out_ch: int, kernel: int, stride: int = 1, act: str 
     The encoder's convs drop their bias under BN (`FPN.py:113`), the
     decoder's and the merge layer's keep it (`FPN.py:43-52`)."""
     layers = [Conv(in_ch, out_ch, kernel, stride, bias=conv_bias, dtype=dtype),
-              BatchNorm(out_ch), Act(act, dtype)]
+              BatchNorm(out_ch, momentum=0.1), Act(act, dtype)]
     if named:
         return nn.Sequential(OrderedDict(zip(("conv", "bn", "act"), layers)))
     return nn.Sequential(*layers)

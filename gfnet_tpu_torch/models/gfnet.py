@@ -1,7 +1,7 @@
 """GFNet head: cross-view decoding, FPN fusion, coarse-to-fine refinement.
 
 Counterpart of `gfnet_tpu/models/gfnet.py:45-264` (ref
-`model/network.py:17-283`), inference only:
+`model/network.py:17-283`):
   - the two views stacked to 2B through shared extractors, and the
     symmetric duplication with swapped roles;
   - the coarse init: global correlation + softmax expectation at the ViT grid;
@@ -9,6 +9,11 @@ Counterpart of `gfnet_tpu/models/gfnet.py:45-264` (ref
   - the inference early-zero of converged displacements (rel < 1e-6);
   - detached bilinear upsampling between scales;
   - the upsample pass re-entering at scale "8" from a previous flow.
+In train mode (`nn.Module.train()`), as the JAX forward under `train=True`:
+BatchNorms use batch statistics, converged displacements are not zeroed, and
+the feature extraction and each refiner call are recomputed in backward
+instead of keeping their activations (`gfnet_tpu/models/gfnet.py:172-183,
+228-250`).
 The frozen ViT is not a submodule: the head takes its patch tokens. Module
 names follow the reference state dict (`dino_decoder`, `encoder`,
 `decoder`, `merge_layer`, `conv_refiner.{scale}`).
@@ -16,10 +21,13 @@ names follow the reference state dict (`dino_decoder`, `encoder`,
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn as nn
 
 from gfnet_tpu_torch.config import ModelConfig
+from gfnet_tpu_torch.models.common import checkpoint_module
 from gfnet_tpu_torch.models.crossview import CrossViewDecoder
 from gfnet_tpu_torch.models.fpn import FPNDecoder, FPNEncoder, conv_bn_act
 from gfnet_tpu_torch.models.refiner import ConvRefiner
@@ -79,7 +87,12 @@ class GFNet(nn.Module):
         _, h0, w0, _ = im_A.shape
         x = torch.cat([im_A, im_B], dim=0)
         gh, gw = h0 // cfg.dino.patch_size, w0 // cfg.dino.patch_size
-        f0s, f1s = self.extract_features(x, vit_tokens, (gh, gw), upsample=upsample)
+        if self.training:
+            f0s, f1s = checkpoint_module(
+                self, partial(self.extract_features, grid_hw=(gh, gw), upsample=upsample),
+                x, vit_tokens)
+        else:
+            f0s, f1s = self.extract_features(x, vit_tokens, (gh, gw), upsample=upsample)
         scales = [s for s in SCALES if s in f0s]
         if symmetric:
             f0s, f1s = ({s: torch.cat([f0s[s], f1s[s]]) for s in scales},
@@ -110,11 +123,17 @@ class GFNet(nn.Module):
             corresps[scale] = {}
             displacement_pre = torch.zeros_like(flow) + 1e-7
             for itr in range(num_itr[idx]):
-                delta_flow, delta_cert = self.conv_refiner[scale](f0, f1, flow, scale_factor=scale_factor)
+                refiner = self.conv_refiner[scale]
+                if self.training:
+                    delta_flow, delta_cert = checkpoint_module(
+                        refiner, partial(refiner, scale_factor=scale_factor), f0, f1, flow)
+                else:
+                    delta_flow, delta_cert = refiner(f0, f1, flow, scale_factor=scale_factor)
                 displacement = float(int(scale)) * torch.stack(
                     [delta_flow[..., 0] / (4 * w0), delta_flow[..., 1] / (4 * h0)], dim=-1)
-                rel = (displacement - displacement_pre).abs() / displacement_pre.abs()
-                displacement = torch.where(rel < 1e-6, torch.zeros_like(displacement), displacement)
+                if not self.training:
+                    rel = (displacement - displacement_pre).abs() / displacement_pre.abs()
+                    displacement = torch.where(rel < 1e-6, torch.zeros_like(displacement), displacement)
                 flow = flow + displacement
                 certainty = certainty + delta_cert
                 corresps[scale][itr + 1] = {"flow": flow, "certainty": certainty}

@@ -1,4 +1,4 @@
-"""Per-scale ConvRefiner: flow/certainty refinement head, inference only.
+"""Per-scale ConvRefiner: flow/certainty refinement head.
 
 Counterpart of the plain path of `gfnet_tpu/models/refiner.py:369-435`
 (ref `model/network.py:444-564`):
@@ -6,10 +6,15 @@ Counterpart of the plain path of `gfnet_tpu/models/refiner.py:369-435`
   - resample the query features onto the regular G x G grid (a separable
     bilinear resize);
   - 1x1-embed the displacement `40/32 * scale_factor * (flow - grid)`;
-  - local correlation through kernel K2 for radius > 0, with no gradient to
-    target or flow (ref `disable_local_corr_grad=True`);
+  - local correlation through kernel K2 for radius > 0, with gradient (kernel
+    K3) to the query features but not to target or flow (ref
+    `disable_local_corr_grad=True`);
   - `block1` and the hidden blocks (depthwise 5x5 in float32 → BN → ReLU →
     1x1), then `out_conv` in float32 → (Δflow, Δcertainty).
+In train mode (`nn.Module.train()`) the BatchNorms use batch statistics
+(momentum 0.01, flax 0.99), the local correlation takes float32 operands and
+each hidden block is recomputed in backward, as the JAX forward does under
+`train=True` (`gfnet_tpu/models/refiner.py:389-396,415-420`).
 The JAX package's space-to-depth stack is a TPU lowering of the same math
 and has no counterpart here. Module names follow the reference state dict
 (`block1.0/1/3`, `hidden_blocks.{j}`, `disp_emb`, `out_conv`).
@@ -21,7 +26,7 @@ import torch
 import torch.nn as nn
 
 from gfnet_tpu_torch.core.geometry import normalized_grid
-from gfnet_tpu_torch.models.common import Act, BatchNorm, Conv
+from gfnet_tpu_torch.models.common import Act, BatchNorm, Conv, checkpoint_module
 from gfnet_tpu_torch.ops.local_correlation import local_correlation
 from gfnet_tpu_torch.ops.resize import interpolate
 from gfnet_tpu_torch.ops.sampler import grid_sample
@@ -68,12 +73,17 @@ class ConvRefiner(nn.Module):
         emb = self.disp_emb((40.0 / 32.0 * scale_factor * (flow - grid)).to(dt))
         feats = [grid_feature, x_hat, emb]
         if self.radius > 0:
-            with torch.no_grad():
-                corr = local_correlation(grid_feature, target, flow.detach(), self.radius)
+            # storage in the model dtype at inference (lossless: the features
+            # were produced in it), float32 operands in training
+            op = torch.float32 if self.training else dt
+            corr = local_correlation(grid_feature.to(op), target.to(op).detach(),
+                                     flow.detach(), self.radius)
             feats.append(corr.to(dt))
         d = torch.cat(feats, dim=-1)
         if d.shape[-1] != self.hidden_dim:
             raise ValueError(f"refiner input has {d.shape[-1]} channels, expected {self.hidden_dim}")
-        d = self.hidden_blocks(self.block1(d))
+        d = self.block1(d)
+        for block in self.hidden_blocks:
+            d = checkpoint_module(block, block, d) if self.training else block(d)
         out = self.out_conv(d.float())
         return out[..., :2], out[..., 2:3]

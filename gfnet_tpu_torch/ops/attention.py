@@ -2,8 +2,8 @@
 
 Counterpart of `gfnet_tpu/ops/attention.py`. `fused_attention` launches the
 hand-written CUDA kernel K1 (`ops/kernels.py`, `csrc/oneshot_attention.cu`)
-for CUDA tensors and runs the plain `scaled_dot_product_attention` for CPU
-tensors. The one semantic that must survive is the "entropy invariance"
+for CUDA tensors, with its gradient recomputed through the plain version, and
+runs the plain `scaled_dot_product_attention` for CPU tensors. The one semantic that must survive is the "entropy invariance"
 softmax scale, head_dim^-0.5 · log(N) / log(train_avg_length)
 (ref `attention.py:84,213,249`).
 """
@@ -37,13 +37,33 @@ def scaled_dot_product_attention(q: Tensor, k: Tensor, v: Tensor, scale: float |
     return torch.einsum("bhnm,bmhd->bnhd", probs, v)
 
 
+class _FusedAttentionCUDA(torch.autograd.Function):
+    """K1 forward; the backward recomputes through the plain version, as the
+    JAX package pairs its kernel with an einsum backward
+    (`ops/attention.py:122-147`). It has no attention backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return kernels.oneshot_attention(q, k, v, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad: Tensor):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = scaled_dot_product_attention(*qkv, ctx.scale)
+        return (*torch.autograd.grad(out, qkv, grad), None)
+
+
 def fused_attention(q: Tensor, k: Tensor, v: Tensor, scale: float | None = None) -> Tensor:
     """Non-causal attention over (B, N, H, D): kernel K1 on CUDA tensors,
     the plain version on CPU tensors."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.is_cuda:
-        return kernels.oneshot_attention(q, k, v, float(scale))
+        return _FusedAttentionCUDA.apply(q, k, v, float(scale))
     return scaled_dot_product_attention(q, k, v, scale)
 
 

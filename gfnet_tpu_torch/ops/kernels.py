@@ -1,7 +1,7 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-The sources under `gfnet_tpu_torch/csrc/` compile at first use into one
-shared library with a plain C interface, loaded with `ctypes`:
+The sources under `gfnet_tpu_torch/csrc/` (K1 attention, K2 local correlation
+and K3, its gradient in the query) compile at first use into one shared library with a plain C interface, loaded with `ctypes`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c <src>.cu
     nvcc -shared -o libgfnet_kernels.so *.o
@@ -35,7 +35,8 @@ Tensor = torch.Tensor
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("oneshot_attention.cu", "local_corr.cu")
+SOURCES = ("oneshot_attention.cu", "local_corr.cu", "local_corr_bwd.cu")
+HEADERS = ("local_corr_window.cuh",)  # included by the sources; hashed with them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libgfnet_kernels.so"
@@ -53,7 +54,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -88,6 +89,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gfnet_oneshot_attention.restype = i
     lib.gfnet_local_corr.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, i, p]
     lib.gfnet_local_corr.restype = i
+    lib.gfnet_local_corr_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    lib.gfnet_local_corr_bwd.restype = i
 
 
 def load_library() -> ctypes.CDLL:
@@ -203,7 +206,42 @@ def local_corr(query: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tens
 
 local_corr.launches = 0
 
-KERNELS = {"oneshot_attention": oneshot_attention, "local_corr": local_corr}
+
+def local_corr_bwd(grad: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tensor:
+    """K3: gradient of K2's windows in the query. grad (B, G1, G2, (2r+1)²)
+    float32, target (B, H, W, C) float32 or bf16, flow (B, G1, G2, 2)
+    float32, all contiguous CUDA tensors → dq (B, G1, G2, C) float32."""
+    _require_cuda("local_corr_bwd", grad, target, flow)
+    if grad.dtype != torch.float32 or flow.dtype != torch.float32:
+        raise ValueError(f"local_corr_bwd: grad and flow must be float32, got {grad.dtype}, {flow.dtype}")
+    if target.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"local_corr_bwd: target dtype {target.dtype}")
+    if radius < 0:
+        raise ValueError(f"local_corr_bwd: radius {radius}")
+    taps = (2 * radius + 1) ** 2
+    if (grad.dim() != 4 or target.dim() != 4 or grad.shape[3] != taps
+            or flow.shape != grad.shape[:3] + (2,) or target.shape[0] != grad.shape[0]):
+        raise ValueError(f"local_corr_bwd: shapes {tuple(grad.shape)}, {tuple(target.shape)}, "
+                         f"{tuple(flow.shape)} at radius {radius}")
+    for t in (grad, target, flow):
+        if not t.is_contiguous():
+            raise ValueError("local_corr_bwd: tensors must be contiguous")
+    b, g1, g2, _ = grad.shape
+    _, h, w, c = target.shape
+    dq = torch.empty((b, g1, g2, c), dtype=torch.float32, device=grad.device)
+    lib = load_library()
+    err = lib.gfnet_local_corr_bwd(
+        grad.data_ptr(), target.data_ptr(), flow.data_ptr(), dq.data_ptr(), b, g1, g2, h, w, c,
+        int(radius), 1.0 / math.sqrt(c), int(target.dtype == torch.bfloat16), _stream(grad.device))
+    _check(err, "local_corr_bwd")
+    local_corr_bwd.launches += 1
+    return dq
+
+
+local_corr_bwd.launches = 0
+
+KERNELS = {"oneshot_attention": oneshot_attention, "local_corr": local_corr,
+           "local_corr_bwd": local_corr_bwd}
 
 
 def reset_launch_counts() -> None:

@@ -97,7 +97,10 @@ def resize_weight_matrix(in_size: int, out_size: int, mode: str = "bilinear",
 @lru_cache(maxsize=128)
 def _weight_tensor(in_size, out_size, mode, align_corners, scale, antialias, dtype, device):
     W = resize_weight_matrix(in_size, out_size, mode, align_corners, scale, antialias)
-    return torch.as_tensor(W).to(device=device, dtype=dtype)
+    # the cache outlives the caller's mode: a tensor made under
+    # `torch.inference_mode()` could not be saved for a later backward
+    with torch.inference_mode(False):
+        return torch.as_tensor(W).to(device=device, dtype=dtype)
 
 
 def interpolate(x: Tensor, size: tuple[int, int] | int, mode: str = "bilinear",

@@ -6,7 +6,7 @@
     (the reference GFNet checkpoint layout), composed of the per-module
     bridges `flax_to_torch_crossview`, `_encoder`, `_fpn_decoder` and `_refiner`;
   - `load_head_npz`: an `.npz` head with flat `params/...`, `batch_stats/...`
-    keys → (state_dict, kv_norm).
+    keys → (state_dict, kv_norm); `load_vit_npz`: converted DINOv2 weights.
 
 Trees are nested dicts of numpy arrays (or anything `np.asarray` takes).
 Layouts: flax Dense kernels are (in, out), torch's (out, in); conv kernels
@@ -166,22 +166,34 @@ def flax_to_torch_head(head_vars: dict) -> dict:
     return sd
 
 
+def _nest(raw, skip: tuple[str, ...] = ()) -> dict:
+    """A flat mapping with `/`-joined keys (an `.npz`) → nested dicts."""
+    tree: dict = {}
+    for name in raw.files:
+        if name in skip:
+            continue
+        d = tree
+        *parents, leaf = name.split("/")
+        for k in parents:
+            d = d.setdefault(k, {})
+        d[leaf] = raw[name]
+    return tree
+
+
+def load_vit_npz(path: str) -> dict:
+    """Read converted DINOv2 weights (the `.npz` the JAX package's
+    `load_dinov2_params` reads) → state dict of the port's `VisionTransformer`."""
+    with np.load(path) as raw:
+        return flax_to_torch_vit(_nest(raw))
+
+
 def load_head_npz(path: str) -> tuple[dict, bool]:
     """Read an `.npz` head (flat `params/...` and `batch_stats/...` keys, as
     `workspace/trained_head_*.npz`) → (port state dict, kv_norm). kv_norm is
     the `__protocol_kv_norm__` flag of heads trained with k/v
     standardization; the caller passes it to the config
     (`ModelConfig.with_kv_norm`)."""
-    tree: dict = {}
-    kv_norm = False
+    flag = "__protocol_kv_norm__"
     with np.load(path) as raw:
-        for name in raw.files:
-            if name == "__protocol_kv_norm__":
-                kv_norm = bool(raw[name])
-                continue
-            d = tree
-            *parents, leaf = name.split("/")
-            for k in parents:
-                d = d.setdefault(k, {})
-            d[leaf] = raw[name]
-    return flax_to_torch_head(tree), kv_norm
+        kv_norm = bool(raw[flag]) if flag in raw.files else False
+        return flax_to_torch_head(_nest(raw, skip=(flag,))), kv_norm

@@ -9,9 +9,13 @@ gate's tolerance:
     at the ViT and cross-view shapes of phase 3 (bf16);
   - K2 with the centre tap of every window zeroed, at two shapes of phase 4;
   - the tiny config's `match()` on CUDA against the CPU (phase 5), with K1's
-    scale off by 1% and with K2's centre tap zeroed.
+    scale off by 1% and with K2's centre tap zeroed;
+  - K3 with the centre tap of the incoming gradient dropped, and with its
+    1/√C scale off by 1%, at two shapes of phase 7 (float32);
+  - the tiny config's train step on CUDA against the CPU (phase 8), sound and
+    with each of the two K3 faults: the loss and the gradient gate.
 
-Exits 1 if a planted fault stays inside its gate. Needs one GPU; run from the
+Exits 1 if a planted fault stays inside its gate, or the sound train step does not. Needs one GPU; run from the
 repository root:
 
     python3 scripts/plant_faults_torch.py
@@ -32,9 +36,9 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from gfnet_tpu_torch.ops import kernels  # noqa: E402
 from gfnet_tpu_torch.ops.attention import entropy_invariant_scale, scaled_dot_product_attention  # noqa: E402
-from gfnet_tpu_torch.ops.local_correlation import _local_correlation_patch  # noqa: E402
+from gfnet_tpu_torch.ops.local_correlation import _local_correlation_patch, local_corr_dq_plain  # noqa: E402
 
-REAL_K1, REAL_K2 = kernels.oneshot_attention, kernels.local_corr
+REAL_K1, REAL_K2, REAL_K3 = kernels.oneshot_attention, kernels.local_corr, kernels.local_corr_bwd
 
 
 def k1_scale_off(q, k, v, scale):
@@ -49,6 +53,16 @@ def k2_centre_zeroed(query, target, flow, radius):
     out = REAL_K2(query, target, flow, radius)
     out[..., (2 * radius + 1) ** 2 // 2] = 0
     return out
+
+
+def k3_centre_dropped(grad, target, flow, radius):
+    grad = grad.clone()
+    grad[..., (2 * radius + 1) ** 2 // 2] = 0
+    return REAL_K3(grad, target, flow, radius)
+
+
+def k3_scale_off(grad, target, flow, radius):
+    return REAL_K3(grad, target, flow, radius) * 1.01
 
 
 def report(fault: str, gate: str, err: float, tol: float, caught: list) -> None:
@@ -76,6 +90,38 @@ def kernel_faults(caught: list) -> None:
         report(f"k2_centre_zeroed r{r} q{g} t{t} C{c}", "k2", err, chip_smoke.K2_ATOL, caught)
 
 
+def k3_faults(caught: list) -> None:
+    gen = torch.Generator("cuda").manual_seed(7)
+    for r, c, t, g in (chip_smoke.TRAIN_CORR_SHAPES[0], chip_smoke.TRAIN_CORR_SHAPES[-1]):
+        b = chip_smoke.TRAIN_BATCH
+        target = torch.randn((b, t, t, c), generator=gen, device="cuda")
+        flow = torch.rand((b, g, g, 2), generator=gen, device="cuda") * 2.2 - 1.1
+        grad = torch.randn((b, g, g, (2 * r + 1) ** 2), generator=gen, device="cuda")
+        want = local_corr_dq_plain(grad, target, flow, r)
+        for fault in (k3_centre_dropped, k3_scale_off):
+            err = (fault(grad, target, flow, r) - want).abs().max().item()
+            report(f"{fault.__name__} r{r} q{g} t{t} C{c}", "k3", err, chip_smoke.K3_ATOL, caught)
+
+
+def tiny_train_faults(caught: list) -> None:
+    for fault in (None, k3_centre_dropped, k3_scale_off):
+        if fault is not None:
+            fault.launches = 0  # the real launcher counts on the name it is called by
+            kernels.local_corr_bwd = fault
+        try:
+            r = chip_smoke.tiny_train_compare(torch, np)
+        finally:
+            kernels.local_corr_bwd = REAL_K3
+        name = fault.__name__ if fault else "no fault"
+        print(json.dumps({"fault": f"tiny train step with {name}", "gate": "tiny_train_cuda_vs_cpu",
+                          "loss_rel_err": r["loss_rel_err"], "loss_rtol": r["loss_rtol"],
+                          "grad_max_rel_err": r["grad_max_rel_err"], "grad_rtol": r["grad_rtol"],
+                          "grad_worst_leaf": r["grad_worst_leaf"],
+                          "caught": r["grad_max_rel_err"] > r["grad_rtol"]}), flush=True)
+        # the sound run must pass its gate, a faulty one must not
+        caught.append((r["grad_max_rel_err"] > r["grad_rtol"]) == (fault is not None))
+
+
 def tiny_faults(caught: list) -> None:
     gpu, cpu, a, b = chip_smoke.tiny_setup(torch, np)
     wc, cc = cpu.match(a, b)
@@ -98,6 +144,8 @@ def main() -> int:
     caught: list = []
     kernel_faults(caught)
     tiny_faults(caught)
+    k3_faults(caught)
+    tiny_train_faults(caught)
     return 0 if all(caught) else 1
 
 

@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from gfnet_tpu_torch.ops import kernels
-from gfnet_tpu_torch.ops.attention import entropy_invariant_scale, scaled_dot_product_attention
-from gfnet_tpu_torch.ops.local_correlation import _local_correlation_patch
+from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, fused_attention,
+                                           scaled_dot_product_attention)
+from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, local_corr_dq_plain,
+                                                   local_correlation)
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +72,64 @@ def test_local_corr_matches_plain(cuda_device, dtype, radius, g, hw, c):
     # same storage-rounded inputs both sides, float32 accumulation
     torch.testing.assert_close(got, _local_correlation_patch(q, t, fl, radius), rtol=2e-3, atol=2e-3)
     assert torch.count_nonzero(got[0, 0, 0]) == 0
+
+
+@pytest.mark.parametrize("target_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius,g,hw,c", [(7, 32, 32, 64), (2, 40, 70, 16), (1, 5, 9, 8), (3, 6, 11, 24)])
+def test_local_corr_bwd_matches_plain(cuda_device, target_dtype, radius, g, hw, c):
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    grad = torch.randn((2, g, g, (2 * radius + 1) ** 2), generator=gen, device=cuda_device)
+    t = torch.randn((2, hw, hw, c), generator=gen, device=cuda_device).to(target_dtype)
+    fl = torch.rand((2, g, g, 2), generator=gen, device=cuda_device) * 2.4 - 1.2
+    fl[0, 0, 0] = math.nan
+    fl[1, 0, 0] = 5.0
+    got = kernels.local_corr_bwd(grad, t, fl, radius)
+    # the same storage-rounded target both sides, float32 sums in another order
+    torch.testing.assert_close(got, local_corr_dq_plain(grad, t, fl, radius), rtol=1e-4, atol=1e-4)
+    assert torch.count_nonzero(got[0, 0, 0]) == 0 and torch.count_nonzero(got[1, 0, 0]) == 0
+
+
+def test_local_corr_bwd_refuses_a_strided_gradient(cuda_device):
+    """The gradient that autograd hands over is a slice of a concatenation's;
+    the launcher takes it contiguous only, the `Function` makes it so."""
+    wide = torch.zeros((1, 4, 4, 30), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.local_corr_bwd(wide[..., 5:30], torch.zeros((1, 6, 6, 8), device=cuda_device),
+                               torch.zeros((1, 4, 4, 2), device=cuda_device), 2)
+
+
+def test_local_correlation_function_matches_plain_gradient(cuda_device):
+    """K2 forward and K3 backward through autograd against the plain patch
+    version under autograd, with a strided incoming gradient and no gradient
+    to target or flow."""
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    q = torch.randn((2, 6, 6, 8), generator=gen, device=cuda_device)
+    t = torch.randn((2, 10, 10, 8), generator=gen, device=cuda_device)
+    fl = torch.rand((2, 6, 6, 2), generator=gen, device=cuda_device) * 2.2 - 1.1
+    mix = torch.randn((30, 30), generator=gen, device=cuda_device)
+    grads = []
+    for fn in (local_correlation, _local_correlation_patch):
+        before = kernels.launch_counts()
+        qq, tt, ff = (x.clone().requires_grad_() for x in (q, t, fl))
+        corr = fn(qq, tt.detach() if fn is _local_correlation_patch else tt,
+                  ff.detach() if fn is _local_correlation_patch else ff, 2)
+        # a concatenation, so that the gradient reaching `corr` is a strided slice
+        torch.cat([qq[..., :5], corr], dim=-1).matmul(mix).sin().sum().backward()
+        assert tt.grad is None and ff.grad is None
+        grads.append(qq.grad)
+        launched = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        want = {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1}
+        assert launched == (want if fn is local_correlation else dict.fromkeys(want, 0))
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
+
+
+def test_fused_attention_function_matches_plain_gradient(cuda_device):
+    """K1 forward with the backward recomputed through the plain version."""
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    q, k, v, g = (torch.randn((2, 70, 2, 8), generator=gen, device=cuda_device) for _ in range(4))
+    grads = []
+    for fn in (fused_attention, scaled_dot_product_attention):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves, 0.4), leaves, g))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -1,6 +1,7 @@
-"""The plain PyTorch versions of the two CUDA kernels against the JAX
-package's Pallas kernels, run in interpret mode on the CPU as
-tests/test_oneshot_attention.py and tests/test_pallas.py run them.
+"""The plain PyTorch versions of the CUDA kernels (K1, K2 and K3, the local
+correlation's gradient in the query) against the JAX package's Pallas
+kernels, run in interpret mode on the CPU as tests/test_oneshot_attention.py
+and tests/test_pallas.py run them.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda_kernels.py.
@@ -10,16 +11,19 @@ import math
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gfnet_tpu.ops.attention import scaled_dot_product_attention as jax_sdpa
 from gfnet_tpu.ops.pallas.local_corr import local_correlation_pallas
 from gfnet_tpu.ops.pallas.oneshot_attention import oneshot_attention
 from gfnet_tpu_torch.ops import kernels
 from gfnet_tpu_torch.ops.attention import entropy_invariant_scale, fused_attention, scaled_dot_product_attention
-from gfnet_tpu_torch.ops.local_correlation import _local_correlation_patch, local_correlation
+from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, local_corr_dq_plain,
+                                                   local_correlation)
 
 
 def T(a, dtype=torch.float32):
@@ -58,6 +62,23 @@ def test_fused_attention_takes_plain_version_on_cpu():
     assert kernels.launch_counts() == before
 
 
+def test_sdpa_grad_matches_jax():
+    """The plain attention's gradient, which the CUDA `fused_attention`
+    recomputes in backward, against `jax.grad` of the einsum SDPA that backs
+    the JAX package's `_oneshot_sdpa_grad`; cross-view head dim, entropy scale."""
+    rng = np.random.default_rng(6)
+    b, n, h, d = 2, 90, 2, 8
+    scale = entropy_invariant_scale(d, n, 64)
+    q, k, v, g = (rng.normal(0, 1, (b, n, h, d)).astype(np.float32) for _ in range(4))
+    want = jax.grad(lambda *a: jnp.sum(jax_sdpa(*a, scale) * jnp.asarray(g)), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (T(a).requires_grad_() for a in (q, k, v))
+    got = torch.autograd.grad(fused_attention(tq, tk, tv, scale), (tq, tk, tv), T(g))
+    # float32 both sides, sums over 90 keys; a sound run read at most 7.2e-7
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
 # -------------------------------------------------------- local correlation
 @pytest.mark.parametrize("radius,g,h,c", [(1, 4, 6, 8), (2, 8, 8, 8), (3, 8, 14, 16)])
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
@@ -86,6 +107,65 @@ def test_local_corr_out_of_range_and_nonfinite_flow_is_zero(value):
     np.testing.assert_array_equal(np.asarray(want), 0.0)
 
 
+CORR_GRAD_SHAPES = [(1, 4, 6, 8), (2, 8, 8, 8), (3, 8, 14, 16)]
+
+
+def _corr_grad_inputs(radius, g, h, c, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, g, g, c)).astype(np.float32)
+    t = rng.standard_normal((2, h, h, c)).astype(np.float32)
+    fl = rng.uniform(-1.3, 1.3, (2, g, g, 2)).astype(np.float32)
+    grad = rng.standard_normal((2, g, g, (2 * radius + 1) ** 2)).astype(np.float32)
+    return q, t, fl, grad
+
+
+@pytest.mark.parametrize("radius,g,h,c", CORR_GRAD_SHAPES)
+def test_local_corr_dq_plain_matches_pallas_grad(radius, g, h, c):
+    """K3's plain version against `jax.grad` through the Pallas kernel's
+    custom VJP (`_bwd_kernel`, interpret mode), as tests/test_pallas.py runs it."""
+    q, t, fl, grad = _corr_grad_inputs(radius, g, h, c, 7)
+    want = jax.grad(lambda qq: jnp.sum(local_correlation_pallas(
+        qq, jnp.asarray(t), jnp.asarray(fl), radius, True) * jnp.asarray(grad)))(jnp.asarray(q))
+    got = local_corr_dq_plain(T(grad), T(t), T(fl), radius)
+    # float32 both sides, sums of at most 64·16 terms; a sound run read at most 9.5e-7
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("radius,g,h,c", CORR_GRAD_SHAPES)
+def test_local_corr_dq_plain_matches_autograd(radius, g, h, c):
+    q, t, fl, grad = _corr_grad_inputs(radius, g, h, c, 8)
+    tq = T(q).requires_grad_()
+    (want,) = torch.autograd.grad(_local_correlation_patch(tq, T(t), T(fl), radius), tq, T(grad))
+    # the same float32 products in another order
+    torch.testing.assert_close(local_corr_dq_plain(T(grad), T(t), T(fl), radius), want,
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("value", [5.0, -7.0, math.nan, math.inf])
+def test_local_corr_dq_out_of_range_and_nonfinite_flow_is_zero(value):
+    rng = np.random.default_rng(9)
+    grad = rng.standard_normal((1, 4, 4, 25)).astype(np.float32)
+    t = rng.standard_normal((1, 8, 8, 8)).astype(np.float32)
+    fl = np.full((1, 4, 4, 2), value, np.float32)
+    assert torch.count_nonzero(local_corr_dq_plain(T(grad), T(t), T(fl), 2)) == 0
+    want = jax.grad(lambda qq: jnp.sum(local_correlation_pallas(
+        qq, jnp.asarray(t), jnp.asarray(fl), 2, True) * jnp.asarray(grad)))(jnp.zeros((1, 4, 4, 8)))
+    np.testing.assert_array_equal(np.asarray(want), 0.0)
+
+
+def test_local_correlation_gradient_reaches_the_query_only():
+    rng = np.random.default_rng(10)
+    q, t, fl = (T(a).requires_grad_() for a in (rng.standard_normal((1, 5, 5, 4)),
+                                                rng.standard_normal((1, 9, 9, 4)),
+                                                rng.uniform(-1, 1, (1, 5, 5, 2))))
+    out = local_correlation(q, t, fl, 2)
+    grad = T(rng.standard_normal(tuple(out.shape)))
+    out.backward(grad)
+    assert t.grad is None and fl.grad is None
+    torch.testing.assert_close(q.grad, local_corr_dq_plain(grad, t.detach(), fl.detach(), 2),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_local_correlation_takes_plain_version_on_cpu():
     rng = np.random.default_rng(5)
     q, t = T(rng.standard_normal((1, 5, 5, 4))), T(rng.standard_normal((1, 9, 9, 4)))
@@ -98,6 +178,7 @@ def test_local_correlation_takes_plain_version_on_cpu():
 @pytest.mark.parametrize("fn,args", [
     (kernels.oneshot_attention, lambda: (torch.zeros(1, 4, 1, 8),) * 3 + (0.5,)),
     (kernels.local_corr, lambda: (torch.zeros(1, 2, 2, 4), torch.zeros(1, 3, 3, 4), torch.zeros(1, 2, 2, 2), 1)),
+    (kernels.local_corr_bwd, lambda: (torch.zeros(1, 2, 2, 9), torch.zeros(1, 3, 3, 4), torch.zeros(1, 2, 2, 2), 1)),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(fn, args):
     with pytest.raises(ValueError, match="CUDA"):
