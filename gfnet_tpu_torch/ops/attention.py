@@ -3,8 +3,10 @@
 Counterpart of `gfnet_tpu/ops/attention.py`. `fused_attention` launches the
 hand-written CUDA kernel K1 (`ops/kernels.py`, `csrc/oneshot_attention.cu`)
 for CUDA tensors, with its gradient recomputed through the plain version, and
-runs the plain `scaled_dot_product_attention` for CPU tensors. The one semantic that must survive is the "entropy invariance"
-softmax scale, head_dim^-0.5 · log(N) / log(train_avg_length)
+runs the plain `scaled_dot_product_attention` for CPU tensors.
+`streamed_attention_plain` repeats the kernels' schedule (kv tiles, running
+max and sum, base-2 exponentials) for the tests. The one semantic that must
+survive is the "entropy invariance" softmax scale, head_dim^-0.5 · log(N) / log(train_avg_length)
 (ref `attention.py:84,213,249`).
 """
 
@@ -35,6 +37,35 @@ def scaled_dot_product_attention(q: Tensor, k: Tensor, v: Tensor, scale: float |
     logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhnm,bmhd->bnhd", probs, v)
+
+
+def streamed_attention_plain(q: Tensor, k: Tensor, v: Tensor, scale: float | None = None,
+                             tile: int = 64) -> Tensor:
+    """The schedule of K1's bf16 kernels, step by step, in PyTorch: kv in
+    tiles of `tile` keys, raw float32 logits, a running max and sum, the
+    exponentials as exp2 with scale·log2(e) folded into the argument, the
+    accumulator rescaled by exp2 of the max's move, probabilities cast to v's
+    dtype before the PV product, the division after it. Same function as
+    `scaled_dot_product_attention`; the tests and the GPU smoke run hold it
+    against the reference to catch a wrong fold or rescale off the card."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    c = scale * math.log2(math.e)
+    b, nq, h, d = q.shape
+    qf = q.float()
+    m = torch.full((b, h, nq), -math.inf, device=q.device)
+    l = torch.zeros((b, h, nq), device=q.device)
+    o = torch.zeros((b, h, nq, d), device=q.device)
+    for t0 in range(0, k.shape[1], tile):
+        s = torch.einsum("bnhd,bmhd->bhnm", qf, k[:, t0:t0 + tile].float())
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(s * c - (m_new * c)[..., None])
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bhnm,bmhd->bhnd", p.to(v.dtype).float(), v[:, t0:t0 + tile].float())
+        o = o * alpha[..., None] + pv
+        m = m_new
+    return (o / l[..., None]).permute(0, 2, 1, 3).to(v.dtype)
 
 
 class _FusedAttentionCUDA(torch.autograd.Function):

@@ -138,9 +138,10 @@ def oneshot_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     """K1: softmax(q·kᵀ·scale)·v over (B, N, H, D) CUDA tensors → contiguous
     (B, Nq, H, D). Takes float32 or bf16 and D in {8, 16, 64}; the head and
     channel dims must be packed (strides D, 1), the batch and token strides
-    are free (a slice of a fused qkv projection is read in place). bf16 with
-    D=64 runs on tensor cores: its pointers must be 16-byte aligned and its
-    batch and token strides multiples of 8, or it raises."""
+    are free (a slice of a fused qkv projection is read in place). bf16 runs
+    on tensor cores (`wgmma` at D=64, `mma.sync` at D=8 and 16) and reads
+    16-byte vectors: its pointers must be 16-byte aligned, its batch and
+    token strides multiples of 8 and its scale positive, or it raises."""
     _require_cuda("oneshot_attention", q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"oneshot_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
@@ -151,20 +152,21 @@ def oneshot_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
         raise ValueError(f"oneshot_attention: q {tuple(q.shape)} vs kv {tuple(k.shape)}")
     if d not in ATTENTION_HEAD_DIMS:
         raise ValueError(f"oneshot_attention: head dim {d} not in {ATTENTION_HEAD_DIMS}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and not scale > 0:
+        raise ValueError(f"oneshot_attention: bf16 needs a positive scale, got {scale}")
     for t in (q, k, v):
         if t.stride(3) != 1 or t.stride(2) != d:
             raise ValueError("oneshot_attention: head and channel dims must be packed")
-        # the tensor-core path (bf16, D=64) reads 16-byte vectors
-        if q.dtype == torch.bfloat16 and d == 64 and (
-                t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8):
-            raise ValueError("oneshot_attention: bf16 D=64 needs 16-byte aligned pointers "
+        if bf16 and (t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8):
+            raise ValueError("oneshot_attention: bf16 needs 16-byte aligned pointers "
                              "and batch/token strides that are multiples of 8")
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     lib = load_library()
     err = lib.gfnet_oneshot_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, k.shape[1], h, d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        float(scale), int(q.dtype == torch.bfloat16), _stream(q.device))
+        float(scale), int(bf16), _stream(q.device))
     _check(err, "oneshot_attention")
     oneshot_attention.launches += 1
     return out

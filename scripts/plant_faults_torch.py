@@ -5,8 +5,10 @@ Plants small faults at run time, by wrapping the kernel launchers of
 each, the error the matching gate of `chip_smoke.py` would read beside that
 gate's tolerance:
 
-  - K1 with its softmax scale off by 1%, and with the last 64 keys dropped,
-    at the ViT and cross-view shapes of phase 3 (bf16);
+  - K1 with its softmax scale off by 1%, with the last 64 keys dropped, and
+    with a stale ring stage (each 64-key tile of probabilities multiplied
+    with the V tile before it), at the ViT and cross-view shapes of phase 3
+    (bf16: the `wgmma` kernel at D=64, the `mma.sync` kernel at D=8);
   - K2 with the centre tap of every window zeroed, at two shapes of phase 4;
   - the tiny config's `match()` on CUDA against the CPU (phase 5), with K1's
     scale off by 1% and with K2's centre tap zeroed;
@@ -49,6 +51,11 @@ def k1_tail_dropped(q, k, v, scale):
     return REAL_K1(q, k[:, :-64], v[:, :-64], scale)
 
 
+def k1_stale_stage(q, k, v, scale):
+    # tile i of P meets tile i-1 of V, as when a ring stage is read before its refill has landed
+    return REAL_K1(q, k, torch.roll(v, 64, dims=1), scale)
+
+
 def k2_centre_zeroed(query, target, flow, radius):
     out = REAL_K2(query, target, flow, radius)
     out[..., (2 * radius + 1) ** 2 // 2] = 0
@@ -78,7 +85,7 @@ def kernel_faults(caught: list) -> None:
         q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         want = scaled_dot_product_attention(q.float(), k.float(), v.float(), scale)
-        for fault in (k1_scale_off, k1_tail_dropped):
+        for fault in (k1_scale_off, k1_tail_dropped, k1_stale_stage):
             err = (fault(q, k, v, scale).float() - want).abs().max().item()
             report(f"{fault.__name__} {[b, n, h, d]}", "k1", err, chip_smoke.K1_ATOL, caught)
     for r, c, t, g in ((7, 64, 32, 32), (2, 16, 280, 160)):

@@ -13,7 +13,7 @@ import torch
 
 from gfnet_tpu_torch.ops import kernels
 from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, fused_attention,
-                                           scaled_dot_product_attention)
+                                           scaled_dot_product_attention, streamed_attention_plain)
 from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, local_corr_dq_plain,
                                                    local_correlation)
 
@@ -28,8 +28,14 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,nk,h,d", [(2, 1025, 1025, 16, 64), (1, 130, 77, 2, 64),
-                                        (2, 130, 130, 2, 16), (2, 1024, 1024, 8, 8)])
+@pytest.mark.parametrize("b,n,nk,h,d", [
+    (2, 1025, 1025, 16, 64), (1, 130, 77, 2, 64), (2, 130, 130, 2, 16), (2, 1024, 1024, 8, 8),
+    (2, 1601, 1601, 16, 64), (2, 1600, 1600, 8, 8),  # the 560² pass
+    (2, 1000, 1090, 3, 16),                          # kv in more than one shared-memory chunk at D=16
+    (1, 77, 130, 2, 8), (1, 200, 2100, 1, 8),        # nq != nk; kv in two chunks at D=8
+    (1, 7, 7, 2, 64), (1, 7, 7, 2, 8),               # below one tile
+    (16, 1025, 1025, 16, 64),                        # more blocks than one wave holds
+])
 def test_oneshot_attention_matches_plain(cuda_device, dtype, b, n, nk, h, d):
     gen = torch.Generator(cuda_device).manual_seed(0)
     q = torch.randn((b, n, h, d), generator=gen, device=cuda_device).to(dtype)
@@ -42,22 +48,41 @@ def test_oneshot_attention_matches_plain(cuda_device, dtype, b, n, nk, h, d):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
-def test_oneshot_attention_reads_strided_qkv(cuda_device):
+@pytest.mark.parametrize("d", [64, 8])
+def test_oneshot_attention_reads_strided_qkv(cuda_device, d):
     """q, k, v as slices of one fused projection, read in place."""
     gen = torch.Generator(cuda_device).manual_seed(1)
-    qkv = torch.randn((2, 300, 3, 4, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+    qkv = torch.randn((2, 300, 3, 4, d), generator=gen, device=cuda_device).to(torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     got = kernels.oneshot_attention(q, k, v, 0.125).float()
     want = scaled_dot_product_attention(q.float(), k.float(), v.float(), 0.125)
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
 
 
-def test_oneshot_attention_refuses_misaligned_bf16_d64(cuda_device):
-    """The tensor-core path reads 16-byte vectors; it raises on a layout it cannot read."""
-    buf = torch.zeros(1 + 2 * 40 * 2 * 64, dtype=torch.bfloat16, device=cuda_device)
-    q = buf[1:].view(2, 40, 2, 64)  # 2 bytes past an aligned address
+@pytest.mark.parametrize("b,n,nk,h,d", [(2, 1601, 1601, 16, 64), (2, 1600, 1600, 8, 8), (1, 130, 77, 2, 16)])
+def test_oneshot_attention_matches_its_streamed_plain_version(cuda_device, b, n, nk, h, d):
+    """The bf16 kernels against the PyTorch function that repeats their
+    schedule in bf16: closer than against the float32 reference."""
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    q = torch.randn((b, n, h, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn((b, nk, h, d), generator=gen, device=cuda_device).to(torch.bfloat16) for _ in range(2))
+    scale = entropy_invariant_scale(d, n, 1024)
+    got = kernels.oneshot_attention(q, k, v, scale).float()
+    want = streamed_attention_plain(q, k, v, scale).float()
+    # the order of float32 sums and the last bit of ex2: one rounding of the bf16 output
+    torch.testing.assert_close(got, want, rtol=2**-7, atol=2**-7)
+
+
+@pytest.mark.parametrize("d", [64, 8])
+def test_oneshot_attention_refuses_misaligned_bf16_d64(cuda_device, d):
+    """The tensor-core paths read 16-byte vectors; they raise on a layout they cannot read."""
+    buf = torch.zeros(1 + 2 * 40 * 2 * d, dtype=torch.bfloat16, device=cuda_device)
+    q = buf[1:].view(2, 40, 2, d)  # 2 bytes past an aligned address
     with pytest.raises(ValueError, match="16-byte"):
         kernels.oneshot_attention(q, q, q, 0.125)
+    ok = torch.zeros((2, 40, 2, d), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="positive scale"):
+        kernels.oneshot_attention(ok, ok, ok, 0.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

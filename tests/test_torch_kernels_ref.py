@@ -21,7 +21,8 @@ from gfnet_tpu.ops.attention import scaled_dot_product_attention as jax_sdpa
 from gfnet_tpu.ops.pallas.local_corr import local_correlation_pallas
 from gfnet_tpu.ops.pallas.oneshot_attention import oneshot_attention
 from gfnet_tpu_torch.ops import kernels
-from gfnet_tpu_torch.ops.attention import entropy_invariant_scale, fused_attention, scaled_dot_product_attention
+from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, fused_attention,
+                                           scaled_dot_product_attention, streamed_attention_plain)
 from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, local_corr_dq_plain,
                                                    local_correlation)
 
@@ -52,6 +53,46 @@ def test_sdpa_matches_oneshot_pallas_kv_longer_than_q():
     want = oneshot_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=0.5, interpret=True)
     np.testing.assert_allclose(scaled_dot_product_attention(T(q), T(k), T(v), 0.5).numpy(),
                                np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d,scale,tile", [
+    (2, 65, 65, 3, 64, None, 64),           # one key in the last tile, as N = 1025 = 16·64 + 1
+    (2, 130, 130, 2, 64, None, 64),
+    (1, 65, 65, 2, 8, entropy_invariant_scale(8, 65, 64), 64),
+    (2, 130, 130, 2, 8, entropy_invariant_scale(8, 130, 64), 64),
+    (1, 40, 150, 2, 8, 0.5, 64),            # kv longer than q
+    (1, 65, 130, 2, 64, None, 64),
+    (1, 130, 130, 2, 16, 0.3, 32),          # more tiles, more rescales
+])
+def test_streamed_attention_matches_oneshot_pallas(b, nq, nk, h, d, scale, tile):
+    """The schedule of the CUDA kernels (kv tiles, running max and sum, exp2
+    with the scale folded, division after PV) against the Pallas kernel."""
+    rng = np.random.default_rng(11)
+    q = rng.normal(0, 1, (b, nq, h, d)).astype(np.float32)
+    k, v = (rng.normal(0, 1, (b, nk, h, d)).astype(np.float32) for _ in range(2))
+    want = oneshot_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale, interpret=True)
+    got = streamed_attention_plain(T(q), T(k), T(v), scale, tile)
+    # float32 both sides: summation order and exp2 against exp; a sound run read at most 3.6e-7
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("nq,nk,d,scale", [(130, 130, 64, None), (65, 130, 8, entropy_invariant_scale(8, 65, 64))])
+def test_streamed_attention_matches_oneshot_pallas_bf16(nq, nk, d, scale):
+    rng = np.random.default_rng(12)
+    q = rng.normal(0, 1, (2, nq, 2, d)).astype(np.float32)
+    k, v = (rng.normal(0, 1, (2, nk, 2, d)).astype(np.float32) for _ in range(2))
+    want = oneshot_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), scale=scale, interpret=True)
+    got = streamed_attention_plain(*(T(a, torch.bfloat16) for a in (q, k, v)), scale)
+    # bf16 operands, probabilities and output on both sides: one rounding of the
+    # output (a sound run read 2.0e-3)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=1e-2, atol=1e-2)
+
+
+def test_streamed_attention_is_the_plain_function():
+    rng = np.random.default_rng(13)
+    q, k, v = (T(rng.normal(0, 1, (2, 70, 2, 8))) for _ in range(3))
+    torch.testing.assert_close(streamed_attention_plain(q, k, v, 0.4, tile=16),
+                               scaled_dot_product_attention(q, k, v, 0.4), rtol=1e-5, atol=1e-5)
 
 
 def test_fused_attention_takes_plain_version_on_cpu():
