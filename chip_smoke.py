@@ -157,8 +157,10 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     kernels.load_library()
+    # registers, spills, and the compiler's advisories (a serialised wgmma
+    # pipeline is reported as "Potential Performance Loss")
     report = [ln.strip() for ln in kernels.build_info["log"].splitlines()
-              if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+              if "registers" in ln or "Compiling entry" in ln or "spill" in ln or "Performance" in ln]
     emit("build", seconds=time.perf_counter() - t0, built=kernels.build_info["built"],
          ptxas=report)
 
