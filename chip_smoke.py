@@ -14,8 +14,13 @@ Phases, one JSON line each:
      of a fused qkv projection as the ViT hands them over, against the plain
      version that repeats the kernels' schedule, and the host's cost of one
      launch;
-  4. K2 (local_corr) against its plain version at every main-path shape,
-     plus far-out-of-range and NaN flow (exact zeros);
+  4. K2 (local_corr) against its plain version at every main-path shape, on
+     a homography flow (the refiners' smooth flow: tiles stage their windows
+     in shared memory) and a random one (the worst case: no tile stages),
+     each with the share of staged tiles and the target bytes either way;
+     then a flow where every tile stages and one that mixes both branches
+     (also against the plain version of the kernel's schedule), and exact
+     zeros for far-out-of-range and NaN flow;
   5. the tiny config's `match()` on CUDA (kernels) against the CPU (plain
      versions), float32, same weights (seeded ViT, trained tiny head) and
      images;
@@ -28,14 +33,17 @@ Phases, one JSON line each:
      time, busy share and top kernels;
   7. K3 (local_corr_bwd) against its plain version at the four shapes the
      train step gives it (B=8, float32) and with a bf16 target, plus K2 at
-     those float32 shapes and exact zeros for out-of-range and NaN flow;
+     those float32 shapes, on the same flows as phase 4, with two K3 launches
+     that must agree bit for bit, and exact zeros for out-of-range and NaN
+     flow;
   8. one train step of the tiny config on CUDA (kernels) against the CPU
      (plain versions), float32: the loss and every head gradient;
   9. the trainer at the flagship width: a few steps of `cli.train.train_loop`
      at B=8, 448², bf16, on a synthetic homography stream made on the card,
      with checkpoints, a restore that compares equal, the launch counts per
      step, step time, peak memory and one profiled step.
-Then a line with the per-kernel summary, and as the last line
+Then a line with the per-kernel summary (K2 and K3 at their slowest shape
+on the homography flow, the random flow's time beside it), and as the last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero without it.
 Exits non-zero without a result when CUDA is unavailable or the package is
 not beside this script.
@@ -253,49 +261,126 @@ def k1_host_cost(torch, shapes, launchers: dict | None = None) -> dict:
 
 
 def k2_active_cells(torch, flow, h: int, w: int, r: int) -> int:
-    """Cells whose (2r+2)² patch meets the map: K2 skips the dots of the rest."""
-    px = ((flow[..., 0] + 1) * w - 1) * 0.5
-    py = ((flow[..., 1] + 1) * h - 1) * 0.5
-    x0, y0 = torch.floor(px), torch.floor(py)
-    meets = (torch.isfinite(px) & torch.isfinite(py) & (x0 - r <= w - 1) & (x0 + r + 1 >= 0)
-             & (y0 - r <= h - 1) & (y0 + r + 1 >= 0))
-    return int(meets.sum().item())
+    """Cells whose (2r+2)² patch meets the map: K2 and K3 skip the rest."""
+    from gfnet_tpu_torch.ops.local_correlation import _corr_windows
+
+    return int((~_corr_windows(flow, h, w, r)[4]).sum().item())
 
 
-def phase_k2(torch) -> dict:
+# Flows that K2 and K3 are checked and timed on. "homography": the smooth
+# flow the refiners see (a four-corner homography, half-pixel jitter), whose
+# tiles stage their windows; "random": uniform in [-1.1, 1.1] per cell, the
+# worst case, where no tile stages; "staged_only": a milder homography
+# (corners moved by up to 10% of the side), every tile stages; "mixed": a
+# homography with 3% of its cells NaN, far outside or random, so both
+# branches run in one launch.
+CORR_TIMED_FLOWS = ("homography", "random")
+
+
+def corr_flow(torch, np, kind: str, b: int, g: int, t: int, seed: int):
+    from gfnet_tpu_torch.ops.local_correlation import homography_flow
+
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return torch.from_numpy(rng.uniform(-1.1, 1.1, (b, g, g, 2)).astype(np.float32)).cuda()
+    perturb = 0.1 if kind == "staged_only" else 0.25
+    return homography_flow(rng, b, g, (t, t), perturb=perturb,
+                           broken=0.03 if kind == "mixed" else 0.0).cuda()
+
+
+def corr_tiling(torch, flow, target, r: int) -> dict:
+    """How K2/K3 tile this launch (`kernels.corr_schedule`), the share of
+    tiles that stage (`corr_tile_boxes`), and the target bytes each way: what
+    the per-cell path reads through L2 for every cell whose window meets the
+    map, what the staged boxes hold, and what the cells of unstaged tiles read."""
     from gfnet_tpu_torch.ops import kernels
-    from gfnet_tpu_torch.ops.local_correlation import _local_correlation_patch
+    from gfnet_tpu_torch.ops.local_correlation import _corr_windows, _tiles, corr_tile_boxes
+
+    b, g1, g2, _ = flow.shape
+    _, h, w, c = target.shape
+    elem = target.element_size()
+    sched = kernels.corr_schedule(r, c, elem, h, w, g1, g2, b)
+    _, staged = corr_tile_boxes(flow, h, w, r, sched.tile, sched.box)
+    inside = _tiles(~_corr_windows(flow, h, w, r)[4], sched.tile, False)
+    patch = (2 * r + 2) ** 2 * c * elem
+    return {"tile": list(sched.tile), "box": list(sched.box), "chunk": sched.chunk,
+            "staged_share": staged.float().mean().item(),
+            "percell_l2_bytes": int(inside.sum().item()) * patch,
+            "staged_box_bytes": int(staged.sum().item()) * sched.box[0] * sched.box[1] * c * elem,
+            "unstaged_cell_bytes": int(inside[~staged].sum().item()) * patch}
+
+
+def timed_in_turns(torch, fn, earlier, iters: int) -> dict:
+    """`kernel_ms` of `fn`; with `earlier` (the same launcher of another
+    checkout) both, in turns this, earlier, earlier, this, each the mean
+    of its two."""
+    if earlier is None:
+        return {"kernel_ms": cuda_ms(torch, fn, iters)}
+    runs = {"this": [], "earlier": []}
+    for name in ("this", "earlier", "earlier", "this"):
+        runs[name].append(cuda_ms(torch, fn if name == "this" else earlier, iters))
+    return {"kernel_ms": sum(runs["this"]) / 2, "kernel_ms_runs": runs["this"],
+            "earlier_ms": sum(runs["earlier"]) / 2, "earlier_ms_runs": runs["earlier"]}
+
+
+def check_corr_branches(name: str, rows: list) -> None:
+    """Both branches ran at full width: a launch with every tile staged, one
+    with none, one with both."""
+    shares = [row["staged_share"] for row in rows]
+    if not (1.0 in shares and 0.0 in shares and any(0.0 < x < 1.0 for x in shares)):
+        raise AssertionError(f"{name}: staged shares {shares} miss a branch case")
+
+
+def phase_k2(torch, np, against=None) -> dict:
+    """K2 (bf16, one pair) against its plain version at every main-path shape
+    on the homography and the random flow, then the branch cases and the
+    zero windows. `against`: another checkout's `kernels` module, whose K2 is
+    timed beside this one. Returns the homography row of the slowest shape,
+    with the random flow's time beside it."""
+    from gfnet_tpu_torch.ops import kernels
+    from gfnet_tpu_torch.ops.local_correlation import _local_correlation_patch, local_corr_tiled_plain
 
     gen = torch.Generator("cuda").manual_seed(2)
     # (radius, C, target side, grid side) of every refiner with r > 0 in
-    # pass 1 (448²) and pass 2 (560²), B' = 2
+    # pass 1 (448²) and pass 2 (560²), B' = 2; then the branch cases at the
+    # slowest of them
     shapes = [(7, 64, 32, 32), (6, 64, 56, 32), (6, 64, 70, 40), (4, 32, 112, 64),
               (4, 32, 140, 80), (2, 16, 224, 128), (2, 16, 280, 160)]
+    cases = [(shape, kind) for shape in shapes for kind in CORR_TIMED_FLOWS]
+    cases += [((6, 64, 70, 40), kind) for kind in ("staged_only", "mixed")]
     rows = []
-    for r, c, t, g in shapes:
+    for i, ((r, c, t, g), kind) in enumerate(cases):
         b = 2
         query = torch.randn((b, g, g, c), generator=gen, device="cuda").to(torch.bfloat16)
         target = torch.randn((b, t, t, c), generator=gen, device="cuda").to(torch.bfloat16)
-        flow = torch.rand((b, g, g, 2), generator=gen, device="cuda") * 2.2 - 1.1
+        flow = corr_flow(torch, np, kind, b, g, t, 20 + i)
         got = kernels.local_corr(query, target, flow, r)
         want = _local_correlation_patch(query, target, flow, r)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         taps = (2 * r + 1) ** 2
-        row = {"radius": r, "query": [b, g, g, c], "target": [b, t, t, c], "max_abs_err": err,
-               "atol": K2_ATOL,
-               "kernel_ms": cuda_ms(torch, lambda: kernels.local_corr(query, target, flow, r), 20),
+        row = {"radius": r, "query": [b, g, g, c], "target": [b, t, t, c], "flow": kind,
+               "max_abs_err": err, "atol": K2_ATOL,
+               **timed_in_turns(torch, lambda: kernels.local_corr(query, target, flow, r),
+                                against and (lambda: against.local_corr(query, target, flow, r)), 20),
                "plain_ms": cuda_ms(torch, lambda: _local_correlation_patch(query, target, flow, r), 3),
                "library_ms": None}
+        tiling = corr_tiling(torch, flow, target, r)
+        if kind in ("staged_only", "mixed"):  # the plain version that repeats the kernel's schedule
+            tiled = local_corr_tiled_plain(query, target, flow, r, tiling["tile"], tiling["box"])
+            row["max_abs_err_vs_tiled"] = (got - tiled).abs().max().item()
+            err = max(err, row["max_abs_err_vs_tiled"])
         nbytes = 2 * (query.numel() + target.numel()) + 4 * (flow.numel() + got.numel())
         active = k2_active_cells(torch, flow, t, t, r)
         flops = active * (2 * (2 * r + 2) ** 2 * c + 7 * taps)
         row["bound_ms"], row["bound_by"] = bound(flops, PEAK_F32_FLOPS, nbytes)
         row["active_cells"] = active
+        row.update(tiling)
         emit("k2", **row)
         if not err <= K2_ATOL:
-            raise AssertionError(f"K2 r={r} t={t} g={g}: max abs err {err} > {K2_ATOL}")
+            raise AssertionError(f"K2 r={r} t={t} g={g} {kind} flow: max abs err {err} > {K2_ATOL}")
         rows.append(row)
+    check_corr_branches("K2 bf16", rows)
     for name, value in (("far_out_of_range", 5.0), ("nan", math.nan)):
         query = torch.randn((2, 32, 32, 64), generator=gen, device="cuda").to(torch.bfloat16)
         target = torch.randn((2, 32, 32, 64), generator=gen, device="cuda").to(torch.bfloat16)
@@ -305,7 +390,17 @@ def phase_k2(torch) -> dict:
         emit("k2_zero_window", case=name, all_zero=zeros)
         if not zeros:
             raise AssertionError(f"K2 {name} flow did not give an all-zero window")
-    return max(rows, key=lambda r: r["kernel_ms"])
+    return summary_row(rows)
+
+
+def summary_row(rows: list) -> dict:
+    """The homography row of the slowest shape, with the random flow's time
+    at that shape beside it."""
+    homog = [row for row in rows if row["flow"] == "homography"]
+    row = dict(max(homog, key=lambda r: r["kernel_ms"]))
+    same = lambda r: all(r.get(k) == row.get(k) for k in ("radius", "query", "grad", "target", "target_dtype"))
+    row["ms_random_flow"] = next(r["kernel_ms"] for r in rows if r["flow"] == "random" and same(r))
+    return row
 
 
 def smooth_images(np, rng, b: int, h: int, w: int):
@@ -438,6 +533,12 @@ def device_kernel_events(torch, prof) -> list:
             and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
 
 
+def own_kernels_ms(evts) -> dict:
+    """Device ms of the port's own kernels in a profile: K1, K2, K3."""
+    return {n: sum(device_us(e) for e in evts if n in e.key) / 1e3
+            for n in ("oneshot_attention", "local_corr_kernel", "local_corr_bwd_kernel")}
+
+
 def phase_split(torch, m, x, y) -> dict:
     """Each phase of `estimate_homography_batched` (pass 1, pass 2, sample +
     solve) on its own: wall time (median of 5, host clock, synchronized),
@@ -475,6 +576,7 @@ def phase_split(torch, m, x, y) -> dict:
             out[name] = {"wall_ms": wall, "wall_ms_runs": walls, "device_kernel_ms": kernel_ms,
                          "device_busy_share": kernel_ms / wall,
                          "kernel_launches": sum(e.count for e in evts),
+                         "own_kernels_ms": own_kernels_ms(evts),
                          "top_kernels": [{"name": e.key[:90], "ms": device_us(e) / 1e3,
                                           "count": e.count} for e in top]}
             emit("flagship_split", batch=bsz, part=name, **out[name])
@@ -487,61 +589,89 @@ TRAIN_CORR_SHAPES = [(7, 64, 32, 32), (6, 64, 56, 32), (4, 32, 112, 64), (2, 16,
 TRAIN_BATCH = 8
 
 
-def phase_k3(torch) -> dict:
-    """K3 against `local_corr_dq_plain` at the train step's shapes, and K2 at
-    the same float32 shapes (phase 4 covers the inference shapes in bf16).
-    Returns the slowest K3 row."""
+def phase_k3(torch, np, against=None) -> dict:
+    """K3 against `local_corr_dq_plain` at the train step's shapes (B=8,
+    float32, and one bf16 target), and K2 at the same float32 shapes (phase 4
+    covers the inference shapes in bf16), each on the homography and the
+    random flow; then the branch cases, two K3 launches that must agree bit
+    for bit, and the zero windows. `against` as in `phase_k2`. Returns K3's
+    summary row."""
     from gfnet_tpu_torch.ops import kernels
-    from gfnet_tpu_torch.ops.local_correlation import _local_correlation_patch, local_corr_dq_plain
+    from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, local_corr_dq_plain,
+                                                       local_corr_dq_tiled_plain, local_corr_tiled_plain)
 
     gen = torch.Generator("cuda").manual_seed(7)
-    rows = []
-    cases = [(*shape, torch.float32) for shape in TRAIN_CORR_SHAPES] + [(6, 64, 56, 32, torch.bfloat16)]
-    for r, c, t, g, tdt in cases:
+    rows, k2_rows = [], []
+    shapes = [(*shape, torch.float32) for shape in TRAIN_CORR_SHAPES] + [(6, 64, 56, 32, torch.bfloat16)]
+    cases = [(shape, kind) for shape in shapes for kind in CORR_TIMED_FLOWS]
+    cases += [((6, 64, 56, 32, torch.float32), kind) for kind in ("staged_only", "mixed")]
+    for i, ((r, c, t, g, tdt), kind) in enumerate(cases):
         b, taps = TRAIN_BATCH, (2 * r + 1) ** 2
         query = torch.randn((b, g, g, c), generator=gen, device="cuda")
         target = torch.randn((b, t, t, c), generator=gen, device="cuda").to(tdt)
-        flow = torch.rand((b, g, g, 2), generator=gen, device="cuda") * 2.2 - 1.1
+        flow = corr_flow(torch, np, kind, b, g, t, 70 + i)
         grad = torch.randn((b, g, g, taps), generator=gen, device="cuda")
         active = k2_active_cells(torch, flow, t, t, r)
         got = kernels.local_corr_bwd(grad, target, flow, r)
         want = local_corr_dq_plain(grad, target, flow, r)
+        again = kernels.local_corr_bwd(grad, target, flow, r)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
+        repeatable = bool(torch.equal(got, again))
 
         def autograd_plain():
             q = query.detach().requires_grad_()
             _local_correlation_patch(q, target.float(), flow, r).backward(grad)
 
+        tiling = corr_tiling(torch, flow, target, r)
         row = {"radius": r, "grad": [b, g, g, taps], "target": [b, t, t, c],
-               "target_dtype": str(tdt).split(".")[-1], "max_abs_err": err, "atol": K3_ATOL,
-               "kernel_ms": cuda_ms(torch, lambda: kernels.local_corr_bwd(grad, target, flow, r), 20),
+               "target_dtype": str(tdt).split(".")[-1], "flow": kind, "max_abs_err": err,
+               "atol": K3_ATOL, "bitwise_repeatable": repeatable,
+               **timed_in_turns(torch, lambda: kernels.local_corr_bwd(grad, target, flow, r),
+                                against and (lambda: against.local_corr_bwd(grad, target, flow, r)), 20),
                "plain_ms": cuda_ms(torch, lambda: local_corr_dq_plain(grad, target, flow, r), 3),
                "autograd_plain_ms": cuda_ms(torch, autograd_plain, 3), "library_ms": None,
                "active_cells": active}
+        if kind in ("staged_only", "mixed"):
+            tile, box = tiling["tile"], tiling["box"]
+            row["max_abs_err_vs_tiled"] = (got - local_corr_dq_tiled_plain(grad, target, flow, r, tile, box)
+                                           ).abs().max().item()
+            err = max(err, row["max_abs_err_vs_tiled"])
         # per active cell: the spread (7 operations a tap) and one multiply-add
         # per patch value; bytes: grad, target, flow read once, dq written once
         flops = active * (2 * (2 * r + 2) ** 2 * c + 7 * taps)
         nbytes = 4 * (grad.numel() + flow.numel() + got.numel()) + target.element_size() * target.numel()
         row["bound_ms"], row["bound_by"] = bound(flops, PEAK_F32_FLOPS, nbytes)
+        row.update(tiling)
         emit("k3", **row)
         if not err <= K3_ATOL:
-            raise AssertionError(f"K3 r={r} t={t} g={g} {tdt}: max abs err {err} > {K3_ATOL}")
+            raise AssertionError(f"K3 r={r} t={t} g={g} {tdt} {kind} flow: max abs err {err} > {K3_ATOL}")
+        if not repeatable:
+            raise AssertionError(f"K3 r={r} t={t} g={g} {kind} flow: two launches differ")
         rows.append(row)
         if tdt != torch.float32:
             continue
         out = kernels.local_corr(query, target, flow, r)
         err2 = (out - _local_correlation_patch(query, target, flow, r)).abs().max().item()
         row2 = {"radius": r, "query": [b, g, g, c], "target": [b, t, t, c], "dtype": "float32",
-                "max_abs_err": err2, "atol": K2_ATOL,
-                "kernel_ms": cuda_ms(torch, lambda: kernels.local_corr(query, target, flow, r), 20),
+                "flow": kind, "max_abs_err": err2, "atol": K2_ATOL,
+                **timed_in_turns(torch, lambda: kernels.local_corr(query, target, flow, r),
+                                 against and (lambda: against.local_corr(query, target, flow, r)), 20),
                 "plain_ms": cuda_ms(torch, lambda: _local_correlation_patch(query, target, flow, r), 3),
                 "library_ms": None, "active_cells": active}
+        if kind in ("staged_only", "mixed"):
+            tiled = local_corr_tiled_plain(query, target, flow, r, tiling["tile"], tiling["box"])
+            row2["max_abs_err_vs_tiled"] = (out - tiled).abs().max().item()
+            err2 = max(err2, row2["max_abs_err_vs_tiled"])
         nbytes2 = 4 * (query.numel() + target.numel() + flow.numel() + out.numel())
         row2["bound_ms"], row2["bound_by"] = bound(flops, PEAK_F32_FLOPS, nbytes2)
+        row2.update(tiling)
         emit("k2_train", **row2)
         if not err2 <= K2_ATOL:
-            raise AssertionError(f"K2 float32 r={r} t={t} g={g}: max abs err {err2} > {K2_ATOL}")
+            raise AssertionError(f"K2 float32 r={r} t={t} g={g} {kind} flow: max abs err {err2} > {K2_ATOL}")
+        k2_rows.append(row2)
+    check_corr_branches("K3", rows)
+    check_corr_branches("K2 float32", k2_rows)
     for name, value in (("far_out_of_range", 5.0), ("nan", math.nan)):
         grad = torch.randn((2, 32, 32, 225), generator=gen, device="cuda")
         target = torch.randn((2, 32, 32, 64), generator=gen, device="cuda")
@@ -550,7 +680,7 @@ def phase_k3(torch) -> dict:
         emit("k3_zero_window", case=name, all_zero=zeros)
         if not zeros:
             raise AssertionError(f"K3 {name} flow did not give an all-zero gradient")
-    return max(rows, key=lambda r: r["kernel_ms"])
+    return summary_row(rows)
 
 
 def synth_batch(torch, np, rng, b: int, res: int) -> dict:
@@ -699,8 +829,7 @@ def phase_trainer(torch, np, m) -> dict:
     evts = device_kernel_events(torch, prof)
     kernel_ms = sum(device_us(e) for e in evts) / 1e3
     top = sorted(evts, key=device_us, reverse=True)[:12]
-    ours = {n: sum(device_us(e) for e in evts if n in e.key) / 1e3
-            for n in ("oneshot_attention", "local_corr_kernel", "local_corr_bwd_kernel")}
+    ours = own_kernels_ms(evts)
     result = {"steps": len(log), "batch": b, "res": res, "step_ms_median": statistics.median(walls),
               "step_ms_runs": walls, "pairs_per_s": b / (statistics.median(walls) / 1e3),
               "max_memory_allocated": peak, "losses": losses, "launches_per_step": log[-1]["launches"],
@@ -748,10 +877,10 @@ def main() -> int:
         info = phase_device(torch)
         phase_build()
         k1 = phase_k1(torch, info["exp_per_s"])
-        k2 = phase_k2(torch)
+        k2 = phase_k2(torch, np)
         phase_tiny(torch, np)
         flag, matcher = phase_flagship(torch, np)
-        k3 = phase_k3(torch)
+        k3 = phase_k3(torch, np)
         phase_tiny_grads(torch, np)
         train = phase_trainer(torch, np, matcher)
     except Exception:
@@ -768,12 +897,14 @@ def main() -> int:
         ("local_corr_bwd", k3, "gfnet_tpu_torch/csrc/local_corr_bwd.cu",
          "gfnet_tpu/ops/pallas/local_corr.py:219 (_bwd_kernel)", train["launches_per_step"]),
     ):
-        shape = row.get("shape") or {k: row[k] for k in ("query", "grad", "target", "radius") if k in row}
+        shape = row.get("shape") or {k: row[k] for k in ("query", "grad", "target", "radius", "target_dtype")
+                                     if k in row}
         summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": shape,
+                        **({"flow": row["flow"], "ms_random_flow": row["ms_random_flow"]} if "flow" in row else {}),
                         "launches_per_train_step": train["launches_per_step"][name]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

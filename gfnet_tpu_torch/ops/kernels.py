@@ -21,6 +21,7 @@ a plain PyTorch version: the callers in `ops/attention.py` and
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import math
 import os
@@ -87,9 +88,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.gfnet_oneshot_attention.argtypes = [p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, f, i, p]
     lib.gfnet_oneshot_attention.restype = i
-    lib.gfnet_local_corr.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    corr = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, f, i, p]
+    lib.gfnet_local_corr.argtypes = corr
     lib.gfnet_local_corr.restype = i
-    lib.gfnet_local_corr_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    lib.gfnet_local_corr_bwd.argtypes = corr
     lib.gfnet_local_corr_bwd.restype = i
 
 
@@ -175,10 +177,90 @@ def oneshot_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
 oneshot_attention.launches = 0
 
 
+# The tiling of K2 and K3 (`csrc/local_corr_window.cuh`): a block of eight
+# warps owns `tile` cells of one image and stages the union of their windows
+# in a box of target pixels, one chunk of channels at a time, where the union
+# fits the box.
+CORR_TILES = ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))  # (rows, columns) of cells
+CORR_SMEM_BUDGET = 72 * 1024  # dynamic shared memory of a block: three blocks an SM
+CORR_MIN_BLOCKS = 256         # about two blocks for each of the H100's 132 SMs
+CORR_WARP_PIXELS = 256        # patch pixels a warp walks at most: one r7 cell
+CORR_SCALE_MARGIN = 1.5       # the local scale of the flow a box allows for, against identity
+
+
+@dataclasses.dataclass(frozen=True)
+class CorrSchedule:
+    tile: tuple[int, int]  # cells a block owns, (rows, columns)
+    box: tuple[int, int]   # target pixels a block may stage, (rows, columns)
+    chunk: int             # channels per stage
+
+
+def corr_smem_bytes(radius: int, channels: int, tile: tuple[int, int], box: tuple[int, int],
+                    chunk: int, elem: int) -> int:
+    """Dynamic shared memory of a K2/K3 block, as `corr_smem` in
+    `csrc/local_corr_window.cuh` lays it out: the box of one chunk, win²
+    floats for each cell, the cells' query rows, the table of win² patch
+    pixels, 128 bytes of alignment slack."""
+    a = lambda x: (x + 127) // 128 * 128
+    win2, cells = (2 * radius + 2) ** 2, tile[0] * tile[1]
+    return (a(box[0] * box[1] * chunk * elem) + a(cells * win2 * 4) + a(cells * channels * elem)
+            + a(win2 * 4) + 128)
+
+
+def corr_box(radius: int, tile: tuple[int, int], spacing: tuple[float, float]) -> tuple[int, int]:
+    """The box for a tile of cells `spacing` target pixels apart (rows,
+    columns): one window, plus the tile's extent at up to 1.5 times the
+    identity's scale, plus 2 pixels for the floor and half-pixel jitter."""
+    win = 2 * radius + 2
+    return tuple(min(256, win + math.ceil(CORR_SCALE_MARGIN * (n - 1) * s) + 2)
+                 for n, s in zip(tile, spacing))
+
+
+def corr_schedule(radius: int, channels: int, elem: int, height: int, width: int,
+                  g1: int, g2: int, batch: int) -> CorrSchedule:
+    """Tile, box and chunk of a K2/K3 launch. The chunk is the largest run of
+    channels up to 128 bytes (eight 16-byte vectors, a power of two of them)
+    that divides a pixel; the tile is the largest of `CORR_TILES` that gives
+    a warp at most `CORR_WARP_PIXELS` patch pixels (a warp's cells run one
+    after another; `scripts/probe_corr_schedule_torch.py` times the rule
+    against its variants), whose grid has at least `CORR_MIN_BLOCKS` blocks (else the
+    smallest) and whose block fits `CORR_SMEM_BUDGET`; where none fits, the
+    chunk halves. Raises where
+    the target cannot be staged by TMA: a pixel that is not a multiple of 16
+    bytes, or a window that no box holds."""
+    if channels * elem % 16:
+        raise ValueError(f"local correlation: a target pixel of {channels} channels × {elem} bytes "
+                         "is not a multiple of 16 bytes, which TMA and the 16-byte loads need")
+    nv = channels * elem // 16
+    lanes = 8
+    while nv % lanes:
+        lanes //= 2
+    spacing = (height / g1, width / g2)
+    while lanes >= 1:
+        chunk = lanes * 16 // elem
+        for tile in CORR_TILES:
+            blocks = batch * -(-g1 // tile[0]) * -(-g2 // tile[1])
+            small = tile[0] * tile[1] * (2 * radius + 2) ** 2 <= 8 * CORR_WARP_PIXELS
+            if (blocks < CORR_MIN_BLOCKS or not small) and tile != CORR_TILES[-1]:
+                continue
+            box = corr_box(radius, tile, spacing)
+            if 2 * radius + 2 <= min(box) and corr_smem_bytes(radius, channels, tile, box, chunk, elem) <= CORR_SMEM_BUDGET:
+                return CorrSchedule(tile, box, chunk)
+        lanes //= 2
+    raise ValueError(f"local correlation: radius {radius} needs a box that TMA or shared memory cannot hold")
+
+
+def _corr_check_aligned(name: str, *tensors: Tensor) -> None:
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned (TMA and 16-byte loads)")
+
+
 def local_corr(query: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tensor:
     """K2: local correlation windows. query (B, G1, G2, C) and target
-    (B, H, W, C) contiguous CUDA tensors of one dtype (float32 or bf16),
-    flow (B, G1, G2, 2) float32 → (B, G1, G2, (2r+1)²) float32, ky-major."""
+    (B, H, W, C) contiguous 16-byte aligned CUDA tensors of one dtype (float32
+    or bf16) with C × element size a multiple of 16 bytes, flow (B, G1, G2, 2)
+    float32 → (B, G1, G2, (2r+1)²) float32, ky-major."""
     _require_cuda("local_corr", query, target, flow)
     if query.dtype not in (torch.float32, torch.bfloat16) or target.dtype != query.dtype:
         raise ValueError(f"local_corr: dtypes {query.dtype}, {target.dtype}")
@@ -194,12 +276,14 @@ def local_corr(query: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tens
     for t in (query, target, flow):
         if not t.is_contiguous():
             raise ValueError("local_corr: tensors must be contiguous")
-    taps = (2 * radius + 1) ** 2
-    out = torch.empty((b, g1, g2, taps), dtype=torch.float32, device=query.device)
+    _corr_check_aligned("local_corr", query, target)
+    h, w = target.shape[1:3]
+    sched = corr_schedule(radius, c, query.element_size(), h, w, g1, g2, b)
+    out = torch.empty((b, g1, g2, (2 * radius + 1) ** 2), dtype=torch.float32, device=query.device)
     lib = load_library()
     err = lib.gfnet_local_corr(
-        query.data_ptr(), target.data_ptr(), flow.data_ptr(), out.data_ptr(), b, g1, g2,
-        target.shape[1], target.shape[2], c, int(radius), 1.0 / math.sqrt(c),
+        query.data_ptr(), target.data_ptr(), flow.data_ptr(), out.data_ptr(), b, g1, g2, h, w, c,
+        int(radius), *sched.tile, *sched.box, sched.chunk, 1.0 / math.sqrt(c),
         int(query.dtype == torch.bfloat16), _stream(query.device))
     _check(err, "local_corr")
     local_corr.launches += 1
@@ -211,8 +295,9 @@ local_corr.launches = 0
 
 def local_corr_bwd(grad: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tensor:
     """K3: gradient of K2's windows in the query. grad (B, G1, G2, (2r+1)²)
-    float32, target (B, H, W, C) float32 or bf16, flow (B, G1, G2, 2)
-    float32, all contiguous CUDA tensors → dq (B, G1, G2, C) float32."""
+    float32, target (B, H, W, C) float32 or bf16 (16-byte aligned, C ×
+    element size a multiple of 16 bytes), flow (B, G1, G2, 2) float32, all
+    contiguous CUDA tensors → dq (B, G1, G2, C) float32."""
     _require_cuda("local_corr_bwd", grad, target, flow)
     if grad.dtype != torch.float32 or flow.dtype != torch.float32:
         raise ValueError(f"local_corr_bwd: grad and flow must be float32, got {grad.dtype}, {flow.dtype}")
@@ -228,13 +313,16 @@ def local_corr_bwd(grad: Tensor, target: Tensor, flow: Tensor, radius: int) -> T
     for t in (grad, target, flow):
         if not t.is_contiguous():
             raise ValueError("local_corr_bwd: tensors must be contiguous")
+    _corr_check_aligned("local_corr_bwd", target)
     b, g1, g2, _ = grad.shape
     _, h, w, c = target.shape
+    sched = corr_schedule(radius, c, target.element_size(), h, w, g1, g2, b)
     dq = torch.empty((b, g1, g2, c), dtype=torch.float32, device=grad.device)
     lib = load_library()
     err = lib.gfnet_local_corr_bwd(
         grad.data_ptr(), target.data_ptr(), flow.data_ptr(), dq.data_ptr(), b, g1, g2, h, w, c,
-        int(radius), 1.0 / math.sqrt(c), int(target.dtype == torch.bfloat16), _stream(grad.device))
+        int(radius), *sched.tile, *sched.box, sched.chunk, 1.0 / math.sqrt(c),
+        int(target.dtype == torch.bfloat16), _stream(grad.device))
     _check(err, "local_corr_bwd")
     local_corr_bwd.launches += 1
     return dq

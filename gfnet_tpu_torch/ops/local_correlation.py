@@ -12,6 +12,15 @@ K2 (`ops/kernels.py`, `csrc/local_corr.cu`) forward and K3
 CPU tensors take the plain `_local_correlation_patch` with target and flow
 detached; `local_corr_dq_plain` is K3's plain version. A shape the kernels
 cannot take raises.
+
+The kernels give each block a tile of neighbouring cells and stage the union
+of their windows in shared memory where it fits a box of the launch
+(`csrc/local_corr_window.cuh`). `corr_tile_boxes` repeats that decision, and
+`local_corr_tiled_plain` / `local_corr_dq_tiled_plain` repeat the schedule
+(tile → union box → patches gathered from the staged box or per cell) in
+PyTorch, so that the CPU tests reach its indexing; tests and `chip_smoke.py`
+use them, the model does not. `homography_flow` makes the smooth flow the
+refiners see, against which the schedule is timed.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gfnet_tpu_torch.core.geometry import get_perspective_transform, normalized_grid, transform_points
 from gfnet_tpu_torch.ops import kernels
 
 Tensor = torch.Tensor
@@ -99,6 +109,167 @@ def local_corr_dq_plain(g: Tensor, target: Tensor, flow: Tensor, radius: int) ->
     sw[:, 1:, 1:] += fy * fx * gt
     dq = torch.einsum("nyx,nyxc->nc", sw, patches.float())
     return dq.reshape(b, g1, g2, c) / float(np.sqrt(c))
+
+
+def _corr_windows(flow: Tensor, h: int, w: int, radius: int):
+    """Each cell's window as `corr_window` in `csrc/local_corr_window.cuh`
+    computes it: the patch base x0, y0 (int64, 0 where outside), the
+    fractional offsets fx, fy, and `outside` (the patch misses the map, or
+    the flow is not finite). float32, one rounding an operation."""
+    flow = flow.float()
+    px = ((flow[..., 0] + 1) * w - 1) * 0.5
+    py = ((flow[..., 1] + 1) * h - 1) * 0.5
+    x0f, y0f = torch.floor(px), torch.floor(py)
+    side = 2 * radius + 2
+    outside = (~(torch.isfinite(px) & torch.isfinite(py)) | (x0f - radius > w - 1)
+               | (x0f - radius + side - 1 < 0) | (y0f - radius > h - 1) | (y0f - radius + side - 1 < 0))
+    zero = torch.zeros_like(px)
+    x0 = torch.where(outside, zero, x0f).to(torch.int64) - radius
+    y0 = torch.where(outside, zero, y0f).to(torch.int64) - radius
+    x0, y0 = torch.where(outside, 0, x0), torch.where(outside, 0, y0)
+    fx = torch.where(outside, zero, px - x0f)
+    fy = torch.where(outside, zero, py - y0f)
+    return x0, y0, fx, fy, outside
+
+
+def _tiles(x: Tensor, tile: tuple[int, int], fill) -> Tensor:
+    """(B, G1, G2) → (B, T1, T2, ty·tx): the cells of each tile, the grid
+    padded with `fill` to whole tiles."""
+    b, g1, g2 = x.shape
+    ty, tx = tile
+    t1, t2 = -(-g1 // ty), -(-g2 // tx)
+    x = torch.nn.functional.pad(x, (0, t2 * tx - g2, 0, t1 * ty - g1), value=fill)
+    return x.reshape(b, t1, ty, t2, tx).permute(0, 1, 3, 2, 4).reshape(b, t1, t2, ty * tx)
+
+
+def corr_tile_boxes(flow: Tensor, h: int, w: int, radius: int, tile: tuple[int, int],
+                    box: tuple[int, int]) -> tuple[Tensor, Tensor]:
+    """The kernels' staging decision for (B, G1, G2, 2) flow on an h × w map:
+    for each tile of `tile` (rows, columns) cells, the union's corner (B, T1,
+    T2, 2) int64 xy (the least patch base of its cells whose window meets
+    the map; 0 where none does) and whether the union fits `box` (rows,
+    columns) of pixels, (B, T1, T2) bool. Cells outside widen nothing."""
+    x0, y0, _, _, outside = _corr_windows(flow, h, w, radius)
+    inside = _tiles(~outside, tile, False)
+    big = 1 << 40
+    lo_x = torch.where(inside, _tiles(x0, tile, 0), big).amin(-1)
+    hi_x = torch.where(inside, _tiles(x0, tile, 0), -big).amax(-1)
+    lo_y = torch.where(inside, _tiles(y0, tile, 0), big).amin(-1)
+    hi_y = torch.where(inside, _tiles(y0, tile, 0), -big).amax(-1)
+    win = 2 * radius + 2
+    any_in = inside.any(-1)
+    staged = any_in & (hi_x - lo_x + win <= box[1]) & (hi_y - lo_y + win <= box[0])
+    corner = torch.stack([torch.where(any_in, lo_x, 0), torch.where(any_in, lo_y, 0)], -1)
+    return corner, staged
+
+
+def _tiled_patches(target: Tensor, flow: Tensor, radius: int, tile: tuple[int, int],
+                   box: tuple[int, int]):
+    """Each cell's (2r+2)² patch (N, win, win, C) as the kernels fetch it: a
+    tile whose union fits the box is staged (the box cut from the map at the
+    union's corner, zeros off the map) and its cells index into the box; the
+    cells of other tiles read the map, zeros off it; cells outside get zeros.
+    Also fx, fy (N, 1, 1) and `outside` (N,)."""
+    b, g1, g2, _ = flow.shape
+    _, h, w, c = target.shape
+    win = 2 * radius + 2
+    x0, y0, fx, fy, outside = _corr_windows(flow, h, w, radius)
+    corner, staged = corr_tile_boxes(flow, h, w, radius, tile, box)
+    pad = max(box) + win
+    tp = torch.nn.functional.pad(target, (0, 0, pad, pad, pad, pad))
+    dev = target.device
+    ar = torch.arange(win, device=dev)
+
+    # the staged boxes, one for each tile that fits
+    sb, s1, s2 = staged.nonzero(as_tuple=True)
+    cx, cy = corner[sb, s1, s2, 0] + pad, corner[sb, s1, s2, 1] + pad
+    boxes = tp[sb[:, None, None], cy[:, None, None] + torch.arange(box[0], device=dev)[:, None],
+               cx[:, None, None] + torch.arange(box[1], device=dev)]
+    row = torch.full(staged.shape, -1, dtype=torch.int64, device=dev)
+    row[sb, s1, s2] = torch.arange(len(sb), device=dev)
+
+    gy = torch.arange(g1, device=dev)[:, None].expand(g1, g2)
+    gx = torch.arange(g2, device=dev)[None, :].expand(g1, g2)
+    bi = torch.arange(b, device=dev)[:, None, None].expand(b, g1, g2)
+    cell_row = row[bi, gy // tile[0], gx // tile[1]]  # (B, G1, G2): the cell's box, or -1
+    patches = target.new_zeros((b, g1, g2, win, win, c))
+    from_box = ~outside & (cell_row >= 0)
+    from_map = ~outside & (cell_row < 0)
+    if from_box.any():
+        r = cell_row[from_box]
+        oy = y0[from_box] - corner[bi, gy // tile[0], gx // tile[1]][..., 1][from_box]
+        ox = x0[from_box] - corner[bi, gy // tile[0], gx // tile[1]][..., 0][from_box]
+        if (oy < 0).any() or (ox < 0).any() or (oy + win > box[0]).any() or (ox + win > box[1]).any():
+            raise AssertionError("a staged cell's patch leaves its tile's box")
+        patches[from_box] = boxes[r[:, None, None], (oy[:, None] + ar)[:, :, None], (ox[:, None] + ar)[:, None, :]]
+    if from_map.any():
+        patches[from_map] = tp[bi[from_map][:, None, None], (y0[from_map][:, None] + pad + ar)[:, :, None],
+                               (x0[from_map][:, None] + pad + ar)[:, None, :]]
+    n = b * g1 * g2
+    return (patches.reshape(n, win, win, c), fx.reshape(n, 1, 1), fy.reshape(n, 1, 1),
+            outside.reshape(n))
+
+
+def local_corr_tiled_plain(query: Tensor, target: Tensor, flow: Tensor, radius: int,
+                           tile: tuple[int, int], box: tuple[int, int]) -> Tensor:
+    """K2's schedule in PyTorch: patches from `_tiled_patches`, dots and the
+    four-corner combine in float32, zeros for cells outside."""
+    b, g1, g2, c = query.shape
+    win = 2 * radius + 2
+    patches, fx, fy, outside = _tiled_patches(target, flow, radius, tile, box)
+    s = (patches.float() * query.reshape(b * g1 * g2, 1, 1, c).float()).sum(-1)
+    comb = ((1 - fy) * (1 - fx) * s[:, : win - 1, : win - 1] + (1 - fy) * fx * s[:, : win - 1, 1:]
+            + fy * (1 - fx) * s[:, 1:, : win - 1] + fy * fx * s[:, 1:, 1:])
+    comb = torch.where(outside[:, None, None], torch.zeros_like(comb), comb)
+    return comb.reshape(b, g1, g2, (2 * radius + 1) ** 2) / float(np.sqrt(c))
+
+
+def local_corr_dq_tiled_plain(g: Tensor, target: Tensor, flow: Tensor, radius: int,
+                              tile: tuple[int, int], box: tuple[int, int]) -> Tensor:
+    """K3's schedule in PyTorch: the spread gradient of `local_corr_dq_plain`
+    contracted with the patches of `_tiled_patches`; dq = 0 for cells outside."""
+    b, g1, g2, _ = g.shape
+    c = target.shape[-1]
+    win, taps = 2 * radius + 2, 2 * radius + 1
+    patches, fx, fy, outside = _tiled_patches(target, flow, radius, tile, box)
+    gt = g.float().reshape(b * g1 * g2, taps, taps)
+    sw = gt.new_zeros((b * g1 * g2, win, win))
+    sw[:, : win - 1, : win - 1] += (1 - fy) * (1 - fx) * gt
+    sw[:, : win - 1, 1:] += (1 - fy) * fx * gt
+    sw[:, 1:, : win - 1] += fy * (1 - fx) * gt
+    sw[:, 1:, 1:] += fy * fx * gt
+    dq = torch.einsum("nyx,nyxc->nc", sw, patches.float())
+    dq = torch.where(outside[:, None], torch.zeros_like(dq), dq)
+    return dq.reshape(b, g1, g2, c) / float(np.sqrt(c))
+
+
+def homography_flow(rng: np.random.Generator, batch: int, grid: int, target_hw: tuple[int, int],
+                    perturb: float = 0.25, jitter: float = 0.5, broken: float = 0.0) -> Tensor:
+    """(B, G, G, 2) float32 flow of a homography, as the refiners see it: the
+    four corners of the normalized frame moved by up to `perturb` of the side
+    (as `data/homography_synth._four_point_warp` perturbs them), the G × G
+    cell centres of `normalized_grid` mapped through it, plus independent
+    per-cell jitter of up to `jitter` target pixels. A share `broken` of the
+    cells, drawn at random, is set in turns to NaN, to a point far outside the
+    map, and to a uniform random point of the map (which breaks its tile's
+    union)."""
+    corners = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float32)
+    moved = corners + rng.uniform(-2 * perturb, 2 * perturb, (batch, 4, 2)).astype(np.float32)
+    H = get_perspective_transform(torch.from_numpy(np.broadcast_to(corners, (batch, 4, 2)).copy()),
+                                  torch.from_numpy(moved))
+    centres = normalized_grid(grid, grid).reshape(1, grid * grid, 2).expand(batch, -1, -1)
+    flow = transform_points(H, centres).reshape(batch, grid, grid, 2)
+    scale = torch.tensor([2.0 / target_hw[1], 2.0 / target_hw[0]])
+    noise = torch.from_numpy(rng.uniform(-jitter, jitter, (batch, grid, grid, 2)).astype(np.float32))
+    flow = (flow + noise * scale).float()
+    n = int(round(broken * batch * grid * grid))
+    if n:
+        cells = torch.from_numpy(rng.choice(batch * grid * grid, n, replace=False))
+        flat = flow.reshape(-1, 2)
+        flat[cells[0::3]] = float("nan")
+        flat[cells[1::3]] = 5.0
+        flat[cells[2::3]] = torch.from_numpy(rng.uniform(-1, 1, (len(cells[2::3]), 2)).astype(np.float32))
+    return flow.contiguous()
 
 
 class _LocalCorrelationCUDA(torch.autograd.Function):

@@ -14,6 +14,9 @@ gate's tolerance:
     scale off by 1% and with K2's centre tap zeroed;
   - K3 with the centre tap of the incoming gradient dropped, and with its
     1/√C scale off by 1%, at two shapes of phase 7 (float32);
+  - K2 and K3 with the last column of every window dropped for the cells on
+    a tile's right edge (an off-by-one in the staged box), on the homography
+    flow at two shapes of phase 4 (bf16) and of phase 7 (float32);
   - the tiny config's train step on CUDA against the CPU (phase 8), sound and
     with each of the two K3 faults: the loss and the gradient gate.
 
@@ -38,7 +41,8 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from gfnet_tpu_torch.ops import kernels  # noqa: E402
 from gfnet_tpu_torch.ops.attention import entropy_invariant_scale, scaled_dot_product_attention  # noqa: E402
-from gfnet_tpu_torch.ops.local_correlation import _local_correlation_patch, local_corr_dq_plain  # noqa: E402
+from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, _window_patches,  # noqa: E402
+                                                   local_corr_dq_plain)
 
 REAL_K1, REAL_K2, REAL_K3 = kernels.oneshot_attention, kernels.local_corr, kernels.local_corr_bwd
 
@@ -72,6 +76,43 @@ def k3_scale_off(grad, target, flow, radius):
     return REAL_K3(grad, target, flow, radius) * 1.01
 
 
+def _right_edge_last_column(target, flow, radius):
+    """The patches' last column (N, win, C) float32, zeroed except for the
+    cells on their tile's right edge (as the kernels tile this launch), and
+    the corner offsets fx, fy (N, 1)."""
+    b, g1, g2, _ = flow.shape
+    _, h, w, c = target.shape
+    tile = kernels.corr_schedule(radius, c, target.element_size(), h, w, g1, g2, b).tile
+    patches, fx, fy = _window_patches(target, flow, radius)
+    gx = torch.arange(g2, device=flow.device)
+    edge = ((gx % tile[1] == tile[1] - 1) | (gx == g2 - 1)).expand(b, g1, g2).reshape(-1)
+    return patches[:, :, -1, :].float() * edge[:, None, None], fx[:, 0], fy[:, 0]
+
+
+def k2_right_edge_column_dropped(query, target, flow, radius):
+    out = REAL_K2(query, target, flow, radius)
+    col, fx, fy = _right_edge_last_column(target, flow, radius)
+    c = query.shape[-1]
+    s = (col * query.reshape(-1, 1, c).float()).sum(-1)  # dots of the last column (N, win)
+    # the column meets the taps kx = 2r through the corners w01 and w11
+    lost = ((1 - fy) * fx * s[:, :-1] + fy * fx * s[:, 1:]) / c**0.5
+    out = out.reshape(len(s), 2 * radius + 1, 2 * radius + 1).clone()
+    out[:, :, -1] -= lost
+    return out.reshape(query.shape[:3] + (-1,))
+
+
+def k3_right_edge_column_dropped(grad, target, flow, radius):
+    dq = REAL_K3(grad, target, flow, radius)
+    col, fx, fy = _right_edge_last_column(target, flow, radius)
+    taps = 2 * radius + 1
+    g = grad.reshape(-1, taps, taps)[:, :, -1]  # the gradient of taps kx = 2r
+    sw = torch.zeros_like(col[..., 0])
+    sw[:, :-1] += (1 - fy) * fx * g
+    sw[:, 1:] += fy * fx * g
+    lost = torch.einsum("ny,nyc->nc", sw, col) / target.shape[-1] ** 0.5
+    return dq - lost.reshape(dq.shape)
+
+
 def report(fault: str, gate: str, err: float, tol: float, caught: list) -> None:
     caught.append(err > tol)
     print(json.dumps({"fault": fault, "gate": gate, "max_abs_err": err, "atol": tol,
@@ -95,6 +136,14 @@ def kernel_faults(caught: list) -> None:
         err = (k2_centre_zeroed(query, target, flow, r)
                - _local_correlation_patch(query, target, flow, r)).abs().max().item()
         report(f"k2_centre_zeroed r{r} q{g} t{t} C{c}", "k2", err, chip_smoke.K2_ATOL, caught)
+    for i, (r, c, t, g) in enumerate(((6, 64, 70, 40), (2, 16, 280, 160))):
+        query = torch.randn((2, g, g, c), generator=gen, device="cuda").to(torch.bfloat16)
+        target = torch.randn((2, t, t, c), generator=gen, device="cuda").to(torch.bfloat16)
+        flow = chip_smoke.corr_flow(torch, np, "homography", 2, g, t, 40 + i)
+        err = (k2_right_edge_column_dropped(query, target, flow, r)
+               - _local_correlation_patch(query, target, flow, r)).abs().max().item()
+        report(f"k2_right_edge_column_dropped r{r} q{g} t{t} C{c} homography", "k2", err,
+               chip_smoke.K2_ATOL, caught)
 
 
 def k3_faults(caught: list) -> None:
@@ -108,6 +157,20 @@ def k3_faults(caught: list) -> None:
         for fault in (k3_centre_dropped, k3_scale_off):
             err = (fault(grad, target, flow, r) - want).abs().max().item()
             report(f"{fault.__name__} r{r} q{g} t{t} C{c}", "k3", err, chip_smoke.K3_ATOL, caught)
+    for i, (r, c, t, g) in enumerate((chip_smoke.TRAIN_CORR_SHAPES[1], chip_smoke.TRAIN_CORR_SHAPES[-1])):
+        b = chip_smoke.TRAIN_BATCH
+        query = torch.randn((b, g, g, c), generator=gen, device="cuda")
+        target = torch.randn((b, t, t, c), generator=gen, device="cuda")
+        flow = chip_smoke.corr_flow(torch, np, "homography", b, g, t, 50 + i)
+        grad = torch.randn((b, g, g, (2 * r + 1) ** 2), generator=gen, device="cuda")
+        err = (k3_right_edge_column_dropped(grad, target, flow, r)
+               - local_corr_dq_plain(grad, target, flow, r)).abs().max().item()
+        report(f"k3_right_edge_column_dropped r{r} q{g} t{t} C{c} homography", "k3", err,
+               chip_smoke.K3_ATOL, caught)
+        err = (k2_right_edge_column_dropped(query, target, flow, r)
+               - _local_correlation_patch(query, target, flow, r)).abs().max().item()
+        report(f"k2_right_edge_column_dropped r{r} q{g} t{t} C{c} float32 homography", "k2", err,
+               chip_smoke.K2_ATOL, caught)
 
 
 def tiny_train_faults(caught: list) -> None:

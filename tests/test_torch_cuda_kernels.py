@@ -8,13 +8,16 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
 from gfnet_tpu_torch.ops import kernels
 from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, fused_attention,
                                            scaled_dot_product_attention, streamed_attention_plain)
-from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, local_corr_dq_plain,
+from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, corr_tile_boxes,
+                                                   homography_flow, local_corr_dq_plain,
+                                                   local_corr_dq_tiled_plain, local_corr_tiled_plain,
                                                    local_correlation)
 
 pytestmark = pytest.mark.cuda
@@ -158,3 +161,76 @@ def test_fused_attention_function_matches_plain_gradient(cuda_device):
         grads.append(torch.autograd.grad(fn(*leaves, 0.4), leaves, g))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# (radius, C, target side, grid side, batch, dtype): the train step's four
+# shapes (float32, 8 pairs) and the slowest inference shape (bf16, one pair)
+CORR_MAIN_SHAPES = [(7, 64, 32, 32, 8, torch.float32), (6, 64, 56, 32, 8, torch.float32),
+                    (4, 32, 112, 64, 8, torch.float32), (2, 16, 224, 128, 8, torch.float32),
+                    (6, 64, 70, 40, 2, torch.bfloat16)]
+
+
+def _corr_flow(kind, b, g, t, seed):
+    """Homography flow (the tiles stage), uniform random flow (they do not),
+    or a homography with 3% of its cells NaN, far out or random (both)."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return torch.from_numpy(rng.uniform(-1.1, 1.1, (b, g, g, 2)).astype(np.float32))
+    return homography_flow(rng, b, g, (t, t), broken=0.03 if kind == "mixed" else 0.0)
+
+
+@pytest.mark.parametrize("kind", ["homography", "random", "mixed"])
+@pytest.mark.parametrize("radius,c,t,g,b,dtype", CORR_MAIN_SHAPES)
+def test_local_corr_tiles_match_plain(cuda_device, kind, radius, c, t, g, b, dtype):
+    """K2 and K3 at the main path's shapes on flows that take the staged
+    branch, the per-cell branch, or both, against the plain versions and
+    against the plain versions of their schedule."""
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    q = torch.randn((b, g, g, c), generator=gen, device=cuda_device).to(dtype)
+    tg = torch.randn((b, t, t, c), generator=gen, device=cuda_device).to(dtype)
+    grad = torch.randn((b, g, g, (2 * radius + 1) ** 2), generator=gen, device=cuda_device)
+    fl = _corr_flow(kind, b, g, t, 6).to(cuda_device)
+    sched = kernels.corr_schedule(radius, c, tg.element_size(), t, t, g, g, b)
+    _, staged = corr_tile_boxes(fl.cpu(), t, t, radius, sched.tile, sched.box)
+    share = staged.float().mean().item()
+    assert {"homography": share > 0.85, "random": share == 0.0, "mixed": 0.0 < share < 1.0}[kind], share
+    out = kernels.local_corr(q, tg, fl, radius)
+    dq = kernels.local_corr_bwd(grad, tg, fl, radius)
+    # the same storage-rounded inputs both sides, float32 sums in another order
+    torch.testing.assert_close(out, _local_correlation_patch(q, tg, fl, radius), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dq, local_corr_dq_plain(grad, tg, fl, radius), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out, local_corr_tiled_plain(q, tg, fl, radius, sched.tile, sched.box),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dq, local_corr_dq_tiled_plain(grad, tg, fl, radius, sched.tile, sched.box),
+                               rtol=1e-4, atol=1e-4)
+    bad = ~torch.isfinite(fl).all(-1) | (fl.abs() > 2).any(-1)
+    assert torch.count_nonzero(out[bad]) == 0 and torch.count_nonzero(dq[bad]) == 0
+
+
+@pytest.mark.parametrize("kind", ["homography", "random", "mixed"])
+def test_local_corr_bwd_is_bitwise_repeatable(cuda_device, kind):
+    gen = torch.Generator(cuda_device).manual_seed(8)
+    b, g, t, c, radius = 8, 32, 56, 64, 6
+    tg = torch.randn((b, t, t, c), generator=gen, device=cuda_device)
+    grad = torch.randn((b, g, g, (2 * radius + 1) ** 2), generator=gen, device=cuda_device)
+    fl = _corr_flow(kind, b, g, t, 9).to(cuda_device)
+    first = kernels.local_corr_bwd(grad, tg, fl, radius)
+    assert torch.equal(first, kernels.local_corr_bwd(grad, tg, fl, radius))
+
+
+def test_local_corr_refuses_what_tma_cannot_stage(cuda_device):
+    """A pixel that is not a multiple of 16 bytes, or a target that is not
+    16-byte aligned, cannot be staged by TMA or read in 16-byte vectors."""
+    q = torch.zeros((1, 4, 4, 4), dtype=torch.bfloat16, device=cuda_device)
+    fl = torch.zeros((1, 4, 4, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kernels.local_corr(q, torch.zeros((1, 8, 8, 4), dtype=torch.bfloat16, device=cuda_device), fl, 1)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kernels.local_corr_bwd(torch.zeros((1, 4, 4, 9), device=cuda_device),
+                               torch.zeros((1, 8, 8, 4), dtype=torch.bfloat16, device=cuda_device), fl, 1)
+    buf = torch.zeros(1 + 8 * 8 * 8, device=cuda_device)
+    shifted = buf[1:].view(1, 8, 8, 8)  # 4 bytes past an aligned address
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.local_corr(torch.zeros((1, 4, 4, 8), device=cuda_device), shifted, fl, 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.local_corr_bwd(torch.zeros((1, 4, 4, 9), device=cuda_device), shifted, fl, 1)

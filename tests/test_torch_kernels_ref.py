@@ -23,7 +23,9 @@ from gfnet_tpu.ops.pallas.oneshot_attention import oneshot_attention
 from gfnet_tpu_torch.ops import kernels
 from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, fused_attention,
                                            scaled_dot_product_attention, streamed_attention_plain)
-from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, local_corr_dq_plain,
+from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, corr_tile_boxes,
+                                                   homography_flow, local_corr_dq_plain,
+                                                   local_corr_dq_tiled_plain, local_corr_tiled_plain,
                                                    local_correlation)
 
 
@@ -214,6 +216,129 @@ def test_local_correlation_takes_plain_version_on_cpu():
     before = kernels.launch_counts()
     torch.testing.assert_close(local_correlation(q, t, fl, 2), _local_correlation_patch(q, t, fl, 2))
     assert kernels.launch_counts() == before
+
+
+# ------------------------------------------- local correlation, tiled schedule
+def _tiled_case(case):
+    """(radius, tile, box, numpy inputs q, t, flow, grad) for one case of
+    the kernels' tiled schedule at a small size: r2, C8, 14² target, 8² grid
+    (1.75 target pixels a cell, as at the main path's r6/r4/r2 shapes), 4×4
+    tiles and the 16×16 box `kernels.corr_box` gives them."""
+    rng = np.random.default_rng(21)
+    radius, g, h, c, tile = 2, 8, 14, 8, (4, 4)
+    box = kernels.corr_box(radius, tile, (h / g, h / g))
+    if case == "ragged":  # 10² grid: the 4×4 tiles leave 2-cell strips
+        g = 10
+    flow = homography_flow(rng, 2, g, (h, h)).numpy()
+    if case == "random":
+        flow = rng.uniform(-1.3, 1.3, (2, g, g, 2)).astype(np.float32)
+    if case == "mixed":  # one tile of NaN, inf, far-out and edge-straddling cells among sound ones
+        flow[0, 0, 0] = np.nan
+        flow[0, 0, 1, 0] = np.inf
+        flow[0, 1, 0] = (5.0, -6.0)
+        flow[0, 1, 1] = (-1.1, -1.05)  # the window straddles the map's corner
+        flow[0, 2, 2, 1] = -np.inf
+    if case == "small_box":  # a box smaller than one window: everything goes per cell
+        box = (2 * radius + 1, 2 * radius + 1)
+    q = rng.standard_normal((2, g, g, c)).astype(np.float32)
+    t = rng.standard_normal((2, h, h, c)).astype(np.float32)
+    grad = rng.standard_normal((2, g, g, (2 * radius + 1) ** 2)).astype(np.float32)
+    return radius, tile, box, q, t, flow, grad
+
+
+TILED_CASES = ["homography", "random", "mixed", "ragged", "small_box"]
+
+
+def _check_staging(case, flow, h, radius, tile, box):
+    _, staged = corr_tile_boxes(T(flow), h, h, radius, tile, box)
+    share = staged.float().mean().item()
+    want = {"homography": share > 0.8, "random": share == 0.0, "mixed": bool(staged[0, 0, 0]) and share > 0.8,
+            "ragged": share > 0.8 and staged.shape[1:] == (3, 3), "small_box": share == 0.0}[case]
+    assert want, (case, share)
+
+
+@pytest.mark.parametrize("case", TILED_CASES)
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_local_corr_tiled_plain_matches_pallas(case, storage):
+    """K2's schedule (tile → union box → patches from the staged box or per
+    cell) against the Pallas kernel in interpret mode."""
+    radius, tile, box, q, t, fl, _ = _tiled_case(case)
+    _check_staging(case, fl, t.shape[1], radius, tile, box)
+    jdt = jnp.bfloat16 if storage == "bfloat16" else jnp.float32
+    want = local_correlation_pallas(jnp.asarray(q), jnp.asarray(t), jnp.asarray(fl), radius, True, jdt)
+    tdt = getattr(torch, storage)
+    got = local_corr_tiled_plain(T(q, tdt), T(t, tdt), T(fl), radius, tile, box)
+    # both sides see the same storage-rounded values and accumulate in float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    if case == "mixed":
+        assert torch.count_nonzero(got[0, 0, :2]) == 0 and torch.count_nonzero(got[0, 1, 0]) == 0
+        assert torch.count_nonzero(got[0, 1, 1]) > 0
+
+
+@pytest.mark.parametrize("case", TILED_CASES)
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_local_corr_dq_tiled_plain_matches_pallas_grad(case, storage):
+    """K3's schedule against `jax.grad` through the Pallas kernel's custom
+    VJP. K3 takes the target in its storage type and the gradient in float32;
+    the Pallas kernel's bf16 mode would round the gradient too, so the bf16
+    case hands it the bf16-rounded target in float32."""
+    radius, tile, box, q, t, fl, grad = _tiled_case(case)
+    _check_staging(case, fl, t.shape[1], radius, tile, box)
+    tt = T(t, getattr(torch, storage))
+    want = jax.grad(lambda qq: jnp.sum(local_correlation_pallas(
+        qq, jnp.asarray(tt.float().numpy()), jnp.asarray(fl), radius, True) * jnp.asarray(grad)))(jnp.asarray(q))
+    got = local_corr_dq_tiled_plain(T(grad), tt, T(fl), radius, tile, box)
+    # float32 sums of at most 36·8 terms on the same storage-rounded target
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    if case == "mixed":
+        assert torch.count_nonzero(got[0, 0, :2]) == 0 and torch.count_nonzero(got[0, 1, 0]) == 0
+
+
+@pytest.mark.parametrize("bad", [math.nan, math.inf, 5.0, -40.0])
+def test_corr_tile_boxes_outside_cells_widen_no_box(bad):
+    """A cell whose window misses the map, or whose flow is not finite, does
+    not move its tile's corner or stop the tile from staging, and a tile of
+    such cells stages nothing."""
+    rng = np.random.default_rng(22)
+    radius, g, h, tile = 3, 8, 14, (4, 4)
+    box = kernels.corr_box(radius, tile, (h / g, h / g))
+    flow = homography_flow(rng, 1, g, (h, h), perturb=0.05)
+    corner, staged = corr_tile_boxes(flow, h, h, radius, tile, box)
+    assert bool(staged.all())
+    broken = flow.clone()
+    broken[0, 1, 2] = bad       # one cell of tile (0, 0)
+    broken[0, 4:, 4:] = bad     # all of tile (1, 1)
+    corner2, staged2 = corr_tile_boxes(broken, h, h, radius, tile, box)
+    assert bool(staged2[0, 0, 0]) and not bool(staged2[0, 1, 1])
+    assert bool(staged2[0, 0, 1]) and bool(staged2[0, 1, 0])
+    assert torch.equal(corner2[0, 0, 1], corner[0, 0, 1]) and torch.equal(corner2[0, 1, 0], corner[0, 1, 0])
+    # tile (0, 0): its corner is the least base of its other cells, which is
+    # at least the sound corner (the broken cell can only shrink the union)
+    assert bool((corner2[0, 0, 0] >= corner[0, 0, 0]).all())
+    inside_only = flow.clone()[0, :4, :4].reshape(-1, 2)
+    keep = torch.ones(16, dtype=torch.bool)
+    keep[1 * 4 + 2] = False
+    px = ((inside_only[keep, 0] + 1) * h - 1) * 0.5
+    py = ((inside_only[keep, 1] + 1) * h - 1) * 0.5
+    want = torch.stack([torch.floor(px).min(), torch.floor(py).min()]).to(torch.int64) - radius
+    assert torch.equal(corner2[0, 0, 0], want)
+
+
+def test_corr_schedule_fits_and_refuses():
+    """At every main-path shape the schedule fits three blocks an SM and
+    gives at least two blocks an SM; what TMA cannot stage raises."""
+    for r, c, t, g, b, elem in [(7, 64, 32, 32, 2, 2), (6, 64, 56, 32, 2, 2), (6, 64, 70, 40, 2, 2),
+                                (4, 32, 112, 64, 2, 2), (4, 32, 140, 80, 2, 2), (2, 16, 224, 128, 2, 2),
+                                (2, 16, 280, 160, 2, 2), (7, 64, 32, 32, 8, 4), (6, 64, 56, 32, 8, 4),
+                                (4, 32, 112, 64, 8, 4), (2, 16, 224, 128, 8, 4)]:
+        s = kernels.corr_schedule(r, c, elem, t, t, g, g, b)
+        assert kernels.corr_smem_bytes(r, c, s.tile, s.box, s.chunk, elem) <= kernels.CORR_SMEM_BUDGET
+        assert b * -(-g // s.tile[0]) * -(-g // s.tile[1]) >= kernels.CORR_MIN_BLOCKS
+        assert c % s.chunk == 0 and s.chunk * elem in (16, 32, 64, 128) and max(s.box) <= 256
+    with pytest.raises(ValueError, match="16 bytes"):
+        kernels.corr_schedule(1, 4, 2, 8, 8, 4, 4, 1)
+    with pytest.raises(ValueError, match="radius"):
+        kernels.corr_schedule(200, 8, 2, 500, 500, 4, 4, 1)
 
 
 @pytest.mark.parametrize("fn,args", [
