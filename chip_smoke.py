@@ -17,10 +17,11 @@ Phases, one JSON line each:
   4. K2 (local_corr) against its plain version at every main-path shape, on
      a homography flow (the refiners' smooth flow: tiles stage their windows
      in shared memory) and a random one (the worst case: no tile stages),
-     each with the share of staged tiles and the target bytes either way;
+     each with the share of staged tiles and the target bytes either way,
+     and on the homography flow also with staging off (a box of one window);
      then a flow where every tile stages and one that mixes both branches
-     (also against the plain version of the kernel's schedule), and exact
-     zeros for far-out-of-range and NaN flow;
+     (also against the plain version of the kernel's schedule), exact zeros
+     for far-out-of-range and NaN flow, and the host's cost of a launch;
   5. the tiny config's `match()` on CUDA (kernels) against the CPU (plain
      versions), float32, same weights (seeded ViT, trained tiny head) and
      images;
@@ -30,18 +31,20 @@ Phases, one JSON line each:
      448² pair and `estimate_homography_batched` on 8, with launch counts,
      throughput and peak memory; then, for B=1 and B=8, each phase (pass 1,
      pass 2, sample + solve) timed alone and profiled once for its device
-     time, busy share and top kernels;
+     time, busy share and top kernels, and how K2 tiles the refiners' own
+     flows (share of staged tiles per launch);
   7. K3 (local_corr_bwd) against its plain version at the four shapes the
      train step gives it (B=8, float32) and with a bf16 target, plus K2 at
      those float32 shapes, on the same flows as phase 4, with two K3 launches
-     that must agree bit for bit, and exact zeros for out-of-range and NaN
-     flow;
+     that must agree bit for bit, exact zeros for out-of-range and NaN flow,
+     and the host's cost of a K3 launch;
   8. one train step of the tiny config on CUDA (kernels) against the CPU
      (plain versions), float32: the loss and every head gradient;
   9. the trainer at the flagship width: a few steps of `cli.train.train_loop`
      at B=8, 448², bf16, on a synthetic homography stream made on the card,
      with checkpoints, a restore that compares equal, the launch counts per
-     step, step time, peak memory and one profiled step.
+     step, step time, peak memory, one profiled step, and how K2 and K3 tile
+     the refiners' flows of one more step.
 Then a line with the per-kernel summary (K2 and K3 at their slowest shape
 on the homography flow, the random flow's time beside it), and as the last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero without it.
@@ -130,12 +133,12 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, flop_rate: float, nbytes: float, exps: float = 0.0,
-          exp_rate: float = 1.0) -> tuple[float, str]:
+def bound(ops: list, nbytes: float, exps: float = 0.0, exp_rate: float = 1.0) -> tuple[float, str]:
     """The least time in ms the card could take, and which term sets it:
-    operations over their peak rate, bytes over the memory rate, or
+    operations over their peak rate (`ops`: (count, rate) pairs, one for
+    each operand type, whose times add), bytes over the memory rate, or
     exponentials over the special-function units' rate."""
-    terms = {"operations": flops / flop_rate, "bytes": nbytes / PEAK_BYTES,
+    terms = {"operations": sum(n / rate for n, rate in ops), "bytes": nbytes / PEAK_BYTES,
              "exponentials": exps / exp_rate}
     by = max(terms, key=terms.get)
     return 1e3 * terms[by], by
@@ -211,7 +214,7 @@ def phase_k1(torch, exp_rate: float) -> dict:
                "kernel_ms": cuda_ms(torch, lambda: kernels.oneshot_attention(q, k, v, scale), 20),
                "plain_ms": cuda_ms(torch, lambda: scaled_dot_product_attention(q, k, v, scale), 5),
                "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), 20)}
-        row["bound_ms"], row["bound_by"] = bound(4 * b * n * n * h * d, PEAK_BF16_FLOPS, 4 * b * n * h * d * 2,
+        row["bound_ms"], row["bound_by"] = bound([(4 * b * n * n * h * d, PEAK_BF16_FLOPS)], 4 * b * n * h * d * 2,
                                                  b * h * n * n, exp_rate)
         if b == 2:  # the kernels' own schedule in PyTorch, in bf16 as the kernel runs it
             streamed = streamed_attention_plain(q, k, v, scale).float()
@@ -229,35 +232,43 @@ def phase_k1(torch, exp_rate: float) -> dict:
     return max(rows[:4], key=lambda r: r["kernel_ms"])  # the inference path's slowest shape
 
 
-def k1_host_cost(torch, shapes, launchers: dict | None = None) -> dict:
-    """What one K1 launch costs the host, in µs: 200 calls without a
-    synchronise between them, five times over, the least and the median (B=1
-    inference launches K1 56 times a pair and is bound by the host; the host's clock
-    spreads from process to process, so two launchers are compared only in
-    turns within one process: pass them as `launchers`, name → function)."""
+def host_cost(torch, phase: str, cases: dict, launchers: dict) -> dict:
+    """What one launch costs the host, in µs: 200 calls without a synchronise
+    between them, five times over, the least and the median, for each case
+    (label → the launchers' arguments) and launcher (name → function). The
+    host's clock spreads from process to process, so two launchers are
+    compared only in turns within one process."""
     import statistics
 
-    if launchers is None:
-        from gfnet_tpu_torch.ops import kernels
-        launchers = {"oneshot_attention": kernels.oneshot_attention}
-    gen = torch.Generator("cuda").manual_seed(11)
     host = {}
-    for b, n, h, d, scale in shapes:
-        q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
+    for label, args in cases.items():
         runs = {name: [] for name in launchers}
         for _ in range(6):  # the first turn warms up and is dropped
             for name, fn in launchers.items():
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for _ in range(200):
-                    fn(q, k, v, scale)
+                    fn(*args)
                 runs[name].append((time.perf_counter() - t0) / 200 * 1e6)
         torch.cuda.synchronize()
-        host[f"D={d}"] = {name: {"min_us": min(r[1:]), "median_us": statistics.median(r[1:])}
-                          for name, r in runs.items()}
-    emit("k1_host_us_per_launch", **host)
+        host[label] = {name: {"min_us": min(r[1:]), "median_us": statistics.median(r[1:])}
+                       for name, r in runs.items()}
+    emit(phase, **host)
     return host
+
+
+def k1_host_cost(torch, shapes, launchers: dict | None = None) -> dict:
+    """The host's cost of a K1 launch at each (B, N, H, D, scale) of
+    `shapes` (B=1 inference launches K1 56 times a pair and is bound by the
+    host); `launchers` as in `host_cost`, by default this checkout's."""
+    if launchers is None:
+        from gfnet_tpu_torch.ops import kernels
+        launchers = {"oneshot_attention": kernels.oneshot_attention}
+    gen = torch.Generator("cuda").manual_seed(11)
+    cases = {f"D={d}": tuple(torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                             for _ in range(3)) + (scale,)
+             for b, n, h, d, scale in shapes}
+    return host_cost(torch, "k1_host_us_per_launch", cases, launchers)
 
 
 def k2_active_cells(torch, flow, h: int, w: int, r: int) -> int:
@@ -267,39 +278,30 @@ def k2_active_cells(torch, flow, h: int, w: int, r: int) -> int:
     return int((~_corr_windows(flow, h, w, r)[4]).sum().item())
 
 
-# Flows that K2 and K3 are checked and timed on. "homography": the smooth
-# flow the refiners see (a four-corner homography, half-pixel jitter), whose
-# tiles stage their windows; "random": uniform in [-1.1, 1.1] per cell, the
-# worst case, where no tile stages; "staged_only": a milder homography
-# (corners moved by up to 10% of the side), every tile stages; "mixed": a
-# homography with 3% of its cells NaN, far outside or random, so both
-# branches run in one launch.
+# Flows that K2 and K3 are timed on at every shape (`eval/flows.FLOW_KINDS`
+# says what each is); "staged_only" and "mixed" run at one shape each.
 CORR_TIMED_FLOWS = ("homography", "random")
 
 
-def corr_flow(torch, np, kind: str, b: int, g: int, t: int, seed: int):
-    from gfnet_tpu_torch.ops.local_correlation import homography_flow
+def corr_flow(torch, kind: str, b: int, g: int, t: int, seed: int):
+    from gfnet_tpu_torch.eval.flows import kernel_flow
 
-    rng = np.random.default_rng(seed)
-    if kind == "random":
-        return torch.from_numpy(rng.uniform(-1.1, 1.1, (b, g, g, 2)).astype(np.float32)).cuda()
-    perturb = 0.1 if kind == "staged_only" else 0.25
-    return homography_flow(rng, b, g, (t, t), perturb=perturb,
-                           broken=0.03 if kind == "mixed" else 0.0).cuda()
+    return kernel_flow(kind, b, g, t, seed).cuda()
 
 
-def corr_tiling(torch, flow, target, r: int) -> dict:
-    """How K2/K3 tile this launch (`kernels.corr_schedule`), the share of
-    tiles that stage (`corr_tile_boxes`), and the target bytes each way: what
-    the per-cell path reads through L2 for every cell whose window meets the
-    map, what the staged boxes hold, and what the cells of unstaged tiles read."""
+def corr_tiling(torch, flow, target, r: int, query_rows: bool, sched=None) -> dict:
+    """How K2 (`query_rows`) or K3 tile this launch (`sched`, by default
+    `kernels.corr_schedule`'s), the share of tiles that stage
+    (`corr_tile_boxes`), and the target bytes each way: what the per-cell
+    path reads through L2 for every cell whose window meets the map, what the
+    staged boxes hold, and what the cells of unstaged tiles read."""
     from gfnet_tpu_torch.ops import kernels
     from gfnet_tpu_torch.ops.local_correlation import _corr_windows, _tiles, corr_tile_boxes
 
     b, g1, g2, _ = flow.shape
     _, h, w, c = target.shape
     elem = target.element_size()
-    sched = kernels.corr_schedule(r, c, elem, h, w, g1, g2, b)
+    sched = sched or kernels.corr_schedule(r, c, elem, h, w, g1, g2, b, query_rows)
     _, staged = corr_tile_boxes(flow, h, w, r, sched.tile, sched.box)
     inside = _tiles(~_corr_windows(flow, h, w, r)[4], sched.tile, False)
     patch = (2 * r + 2) ** 2 * c * elem
@@ -310,17 +312,40 @@ def corr_tiling(torch, flow, target, r: int) -> dict:
             "unstaged_cell_bytes": int(inside[~staged].sum().item()) * patch}
 
 
-def timed_in_turns(torch, fn, earlier, iters: int) -> dict:
-    """`kernel_ms` of `fn`; with `earlier` (the same launcher of another
-    checkout) both, in turns this, earlier, earlier, this, each the mean
-    of its two."""
-    if earlier is None:
-        return {"kernel_ms": cuda_ms(torch, fn, iters)}
-    runs = {"this": [], "earlier": []}
-    for name in ("this", "earlier", "earlier", "this"):
-        runs[name].append(cuda_ms(torch, fn if name == "this" else earlier, iters))
-    return {"kernel_ms": sum(runs["this"]) / 2, "kernel_ms_runs": runs["this"],
-            "earlier_ms": sum(runs["earlier"]) / 2, "earlier_ms_runs": runs["earlier"]}
+def timed_in_turns(torch, fns: dict, iters: int) -> dict:
+    """`<name>_ms` of each function of `fns` (name → function; None is
+    skipped); of two or more, each twice, in turns forward and back (a, b, c,
+    c, b, a), `<name>_ms` the mean of its two runs `<name>_ms_runs`."""
+    fns = {name: fn for name, fn in fns.items() if fn is not None}
+    order = list(fns) + list(fns)[::-1] if len(fns) > 1 else list(fns)
+    runs = {name: [] for name in fns}
+    for name in order:
+        runs[name].append(cuda_ms(torch, fns[name], iters))
+    out = {}
+    for name, r in runs.items():
+        out[f"{name}_ms"] = sum(r) / len(r)
+        if len(r) > 1:
+            out[f"{name}_ms_runs"] = r
+    return out
+
+
+def unstaged_schedule(r: int, c: int, elem: int, sched, query_rows: bool):
+    """`sched` with a box of one window: a tile stages only where all its
+    cells share one patch, so nearly every cell reads its patch from global
+    memory, its tile's neighbours through L1. Against the staged schedule on
+    a homography flow, this times what staging buys."""
+    from gfnet_tpu_torch.ops import kernels
+
+    win = 2 * r + 2
+    return kernels.corr_layout(r, c, elem, sched.tile, (win, win), sched.chunk, query_rows)
+
+
+def corr_ops(active: int, r: int, c: int, dot_rate: float) -> list:
+    """K2's and K3's operations a launch, as `bound` takes them: per cell
+    whose window meets the map, a multiply-add per patch value (at the rate
+    of the operands' type, `dot_rate`) and 7 float32 operations a tap (the
+    four-corner combine, or the spread of the gradient)."""
+    return [(active * 2 * (2 * r + 2) ** 2 * c, dot_rate), (active * 7 * (2 * r + 1) ** 2, PEAK_F32_FLOPS)]
 
 
 def check_corr_branches(name: str, rows: list) -> None:
@@ -331,7 +356,7 @@ def check_corr_branches(name: str, rows: list) -> None:
         raise AssertionError(f"{name}: staged shares {shares} miss a branch case")
 
 
-def phase_k2(torch, np, against=None) -> dict:
+def phase_k2(torch, against=None) -> dict:
     """K2 (bf16, one pair) against its plain version at every main-path shape
     on the homography and the random flow, then the branch cases and the
     zero windows. `against`: another checkout's `kernels` module, whose K2 is
@@ -353,27 +378,34 @@ def phase_k2(torch, np, against=None) -> dict:
         b = 2
         query = torch.randn((b, g, g, c), generator=gen, device="cuda").to(torch.bfloat16)
         target = torch.randn((b, t, t, c), generator=gen, device="cuda").to(torch.bfloat16)
-        flow = corr_flow(torch, np, kind, b, g, t, 20 + i)
+        flow = corr_flow(torch, kind, b, g, t, 20 + i)
         got = kernels.local_corr(query, target, flow, r)
         want = _local_correlation_patch(query, target, flow, r)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        taps = (2 * r + 1) ** 2
         row = {"radius": r, "query": [b, g, g, c], "target": [b, t, t, c], "flow": kind,
-               "max_abs_err": err, "atol": K2_ATOL,
-               **timed_in_turns(torch, lambda: kernels.local_corr(query, target, flow, r),
-                                against and (lambda: against.local_corr(query, target, flow, r)), 20),
-               "plain_ms": cuda_ms(torch, lambda: _local_correlation_patch(query, target, flow, r), 3),
-               "library_ms": None}
-        tiling = corr_tiling(torch, flow, target, r)
+               "max_abs_err": err, "atol": K2_ATOL}
+        fns = {"kernel": lambda: kernels.local_corr(query, target, flow, r),
+               "earlier": against and (lambda: against.local_corr(query, target, flow, r))}
+        tiling = corr_tiling(torch, flow, target, r, True)
+        if kind == "homography":  # against the same tiles with staging off
+            sched = kernels.corr_schedule(r, c, 2, t, t, g, g, b, True)
+            off = unstaged_schedule(r, c, 2, sched, True)
+            fns["unstaged"] = lambda: kernels.local_corr(query, target, flow, r, off)
+            row["unstaged_max_abs_err"] = (fns["unstaged"]() - want).abs().max().item()
+            row["unstaged_staged_share"] = corr_tiling(torch, flow, target, r, True, off)["staged_share"]
+            err = max(err, row["unstaged_max_abs_err"])
+        row.update(timed_in_turns(torch, fns, 20))
+        row.update(plain_ms=cuda_ms(torch, lambda: _local_correlation_patch(query, target, flow, r), 3),
+                   library_ms=None)
         if kind in ("staged_only", "mixed"):  # the plain version that repeats the kernel's schedule
             tiled = local_corr_tiled_plain(query, target, flow, r, tiling["tile"], tiling["box"])
             row["max_abs_err_vs_tiled"] = (got - tiled).abs().max().item()
             err = max(err, row["max_abs_err_vs_tiled"])
         nbytes = 2 * (query.numel() + target.numel()) + 4 * (flow.numel() + got.numel())
         active = k2_active_cells(torch, flow, t, t, r)
-        flops = active * (2 * (2 * r + 2) ** 2 * c + 7 * taps)
-        row["bound_ms"], row["bound_by"] = bound(flops, PEAK_F32_FLOPS, nbytes)
+        # bf16 × bf16 dots, accumulated in float32, at the bf16 rate
+        row["bound_ms"], row["bound_by"] = bound(corr_ops(active, r, c, PEAK_BF16_FLOPS), nbytes)
         row["active_cells"] = active
         row.update(tiling)
         emit("k2", **row)
@@ -390,7 +422,23 @@ def phase_k2(torch, np, against=None) -> dict:
         emit("k2_zero_window", case=name, all_zero=zeros)
         if not zeros:
             raise AssertionError(f"K2 {name} flow did not give an all-zero window")
+    corr_host_cost(torch, "k2_host_us_per_launch", kernels.local_corr, against and against.local_corr,
+                   (7, 64, 32, 32, 2, torch.bfloat16))
     return summary_row(rows)
+
+
+def corr_host_cost(torch, phase: str, launcher, earlier, shape) -> dict:
+    """The host's cost of a K2 or K3 launch (`host_cost`) at one (radius, C,
+    target side, grid side, batch, dtype) shape on a homography flow, beside
+    `earlier`'s (another checkout's) in turns where it is given."""
+    r, c, t, g, b, dtype = shape
+    gen = torch.Generator("cuda").manual_seed(12)
+    first = (torch.randn((b, g, g, c), generator=gen, device="cuda").to(dtype) if phase.startswith("k2")
+             else torch.randn((b, g, g, (2 * r + 1) ** 2), generator=gen, device="cuda"))
+    target = torch.randn((b, t, t, c), generator=gen, device="cuda").to(dtype)
+    case = {f"r{r} q{g} t{t} C{c} B{b} {str(dtype).split('.')[-1]}": (first, target, corr_flow(torch, "homography", b, g, t, 13), r)}
+    launchers = {"this": launcher, "earlier": earlier} if earlier is not None else {"this": launcher}
+    return host_cost(torch, phase, case, launchers)
 
 
 def summary_row(rows: list) -> dict:
@@ -511,6 +559,8 @@ def phase_flagship(torch, np) -> dict:
     single_s = timed(lambda: m.estimate_homography(a1, b1), 3)
     batched_s = timed(lambda: m.estimate_homography_batched(a8, b8), 2)
     split = {1: phase_split(torch, m, a1[None], b1[None]), 8: phase_split(torch, m, a8, b8)}
+    for bsz, run in ((1, lambda: m.estimate_homography(a1, b1)), (8, lambda: m.estimate_homography_batched(a8, b8))):
+        emit("corr_model_flows", path="estimate_homography", batch=bsz, launches=corr_model_flows(torch, run))
     result = {"setup_s": setup_s, "single_pairs_per_s": 1.0 / single_s,
               "batched_B": 8, "batched_pairs_per_s": 8.0 / batched_s,
               "phase_ms": {b: {k: v["wall_ms"] for k, v in sp.items()} for b, sp in split.items()},
@@ -518,6 +568,36 @@ def phase_flagship(torch, np) -> dict:
               "max_memory_allocated_batched": peak_batched, "launches": counts}
     emit("flagship", **result)
     return result, m
+
+
+def corr_model_flows(torch, run) -> list:
+    """How K2 and K3 tile the flows the model itself hands them: `run()` is
+    called with `kernels.local_corr` and `kernels.local_corr_bwd` wrapped so
+    that each launch first records its shapes, its tiling and the share of
+    its tiles that staged (`corr_tiling`), then launches as usual."""
+    from gfnet_tpu_torch.ops import kernels
+
+    real = {"local_corr": kernels.local_corr, "local_corr_bwd": kernels.local_corr_bwd}
+    seen: list = []
+
+    def recording(name):
+        def launch(first, target, flow, radius):
+            tiling = corr_tiling(torch, flow, target, radius, name == "local_corr")
+            seen.append({"kernel": name, "radius": radius, "grid": list(flow.shape[:3]),
+                         "target": list(target.shape), "dtype": str(target.dtype).split(".")[-1],
+                         **{k: tiling[k] for k in ("tile", "box", "staged_share")}})
+            return real[name](first, target, flow, radius)
+        launch.launches = 0  # the real launcher counts on the name it is called by
+        return launch
+
+    try:
+        for name in real:
+            setattr(kernels, name, recording(name))
+        run()
+    finally:
+        for name, fn in real.items():
+            setattr(kernels, name, fn)
+    return seen
 
 
 def device_us(evt) -> float:
@@ -589,7 +669,7 @@ TRAIN_CORR_SHAPES = [(7, 64, 32, 32), (6, 64, 56, 32), (4, 32, 112, 64), (2, 16,
 TRAIN_BATCH = 8
 
 
-def phase_k3(torch, np, against=None) -> dict:
+def phase_k3(torch, against=None) -> dict:
     """K3 against `local_corr_dq_plain` at the train step's shapes (B=8,
     float32, and one bf16 target), and K2 at the same float32 shapes (phase 4
     covers the inference shapes in bf16), each on the homography and the
@@ -609,7 +689,7 @@ def phase_k3(torch, np, against=None) -> dict:
         b, taps = TRAIN_BATCH, (2 * r + 1) ** 2
         query = torch.randn((b, g, g, c), generator=gen, device="cuda")
         target = torch.randn((b, t, t, c), generator=gen, device="cuda").to(tdt)
-        flow = corr_flow(torch, np, kind, b, g, t, 70 + i)
+        flow = corr_flow(torch, kind, b, g, t, 70 + i)
         grad = torch.randn((b, g, g, taps), generator=gen, device="cuda")
         active = k2_active_cells(torch, flow, t, t, r)
         got = kernels.local_corr_bwd(grad, target, flow, r)
@@ -623,25 +703,31 @@ def phase_k3(torch, np, against=None) -> dict:
             q = query.detach().requires_grad_()
             _local_correlation_patch(q, target.float(), flow, r).backward(grad)
 
-        tiling = corr_tiling(torch, flow, target, r)
+        elem = target.element_size()
+        tiling = corr_tiling(torch, flow, target, r, False)
         row = {"radius": r, "grad": [b, g, g, taps], "target": [b, t, t, c],
                "target_dtype": str(tdt).split(".")[-1], "flow": kind, "max_abs_err": err,
-               "atol": K3_ATOL, "bitwise_repeatable": repeatable,
-               **timed_in_turns(torch, lambda: kernels.local_corr_bwd(grad, target, flow, r),
-                                against and (lambda: against.local_corr_bwd(grad, target, flow, r)), 20),
-               "plain_ms": cuda_ms(torch, lambda: local_corr_dq_plain(grad, target, flow, r), 3),
-               "autograd_plain_ms": cuda_ms(torch, autograd_plain, 3), "library_ms": None,
-               "active_cells": active}
+               "atol": K3_ATOL, "bitwise_repeatable": repeatable}
+        fns = {"kernel": lambda: kernels.local_corr_bwd(grad, target, flow, r),
+               "earlier": against and (lambda: against.local_corr_bwd(grad, target, flow, r))}
+        if kind == "homography":
+            off = unstaged_schedule(r, c, elem, kernels.corr_schedule(r, c, elem, t, t, g, g, b, False), False)
+            fns["unstaged"] = lambda: kernels.local_corr_bwd(grad, target, flow, r, off)
+            row["unstaged_max_abs_err"] = (fns["unstaged"]() - want).abs().max().item()
+            row["unstaged_staged_share"] = corr_tiling(torch, flow, target, r, False, off)["staged_share"]
+            err = max(err, row["unstaged_max_abs_err"])
+        row.update(timed_in_turns(torch, fns, 20))
+        row.update(plain_ms=cuda_ms(torch, lambda: local_corr_dq_plain(grad, target, flow, r), 3),
+                   autograd_plain_ms=cuda_ms(torch, autograd_plain, 3), library_ms=None, active_cells=active)
         if kind in ("staged_only", "mixed"):
             tile, box = tiling["tile"], tiling["box"]
             row["max_abs_err_vs_tiled"] = (got - local_corr_dq_tiled_plain(grad, target, flow, r, tile, box)
                                            ).abs().max().item()
             err = max(err, row["max_abs_err_vs_tiled"])
-        # per active cell: the spread (7 operations a tap) and one multiply-add
-        # per patch value; bytes: grad, target, flow read once, dq written once
-        flops = active * (2 * (2 * r + 2) ** 2 * c + 7 * taps)
-        nbytes = 4 * (grad.numel() + flow.numel() + got.numel()) + target.element_size() * target.numel()
-        row["bound_ms"], row["bound_by"] = bound(flops, PEAK_F32_FLOPS, nbytes)
+        # float32 gradient × float32 or bf16 target: float32 products; bytes:
+        # grad, target, flow read once, dq written once
+        nbytes = 4 * (grad.numel() + flow.numel() + got.numel()) + elem * target.numel()
+        row["bound_ms"], row["bound_by"] = bound(corr_ops(active, r, c, PEAK_F32_FLOPS), nbytes)
         row.update(tiling)
         emit("k3", **row)
         if not err <= K3_ATOL:
@@ -652,20 +738,29 @@ def phase_k3(torch, np, against=None) -> dict:
         if tdt != torch.float32:
             continue
         out = kernels.local_corr(query, target, flow, r)
-        err2 = (out - _local_correlation_patch(query, target, flow, r)).abs().max().item()
+        want2 = _local_correlation_patch(query, target, flow, r)
+        err2 = (out - want2).abs().max().item()
         row2 = {"radius": r, "query": [b, g, g, c], "target": [b, t, t, c], "dtype": "float32",
-                "flow": kind, "max_abs_err": err2, "atol": K2_ATOL,
-                **timed_in_turns(torch, lambda: kernels.local_corr(query, target, flow, r),
-                                 against and (lambda: against.local_corr(query, target, flow, r)), 20),
-                "plain_ms": cuda_ms(torch, lambda: _local_correlation_patch(query, target, flow, r), 3),
-                "library_ms": None, "active_cells": active}
+                "flow": kind, "max_abs_err": err2, "atol": K2_ATOL}
+        tiling2 = corr_tiling(torch, flow, target, r, True)
+        fns = {"kernel": lambda: kernels.local_corr(query, target, flow, r),
+               "earlier": against and (lambda: against.local_corr(query, target, flow, r))}
+        if kind == "homography":
+            off2 = unstaged_schedule(r, c, 4, kernels.corr_schedule(r, c, 4, t, t, g, g, b, True), True)
+            fns["unstaged"] = lambda: kernels.local_corr(query, target, flow, r, off2)
+            row2["unstaged_max_abs_err"] = (fns["unstaged"]() - want2).abs().max().item()
+            row2["unstaged_staged_share"] = corr_tiling(torch, flow, target, r, True, off2)["staged_share"]
+            err2 = max(err2, row2["unstaged_max_abs_err"])
+        row2.update(timed_in_turns(torch, fns, 20))
+        row2.update(plain_ms=cuda_ms(torch, lambda: _local_correlation_patch(query, target, flow, r), 3),
+                    library_ms=None, active_cells=active)
         if kind in ("staged_only", "mixed"):
-            tiled = local_corr_tiled_plain(query, target, flow, r, tiling["tile"], tiling["box"])
+            tiled = local_corr_tiled_plain(query, target, flow, r, tiling2["tile"], tiling2["box"])
             row2["max_abs_err_vs_tiled"] = (out - tiled).abs().max().item()
             err2 = max(err2, row2["max_abs_err_vs_tiled"])
         nbytes2 = 4 * (query.numel() + target.numel() + flow.numel() + out.numel())
-        row2["bound_ms"], row2["bound_by"] = bound(flops, PEAK_F32_FLOPS, nbytes2)
-        row2.update(tiling)
+        row2["bound_ms"], row2["bound_by"] = bound(corr_ops(active, r, c, PEAK_F32_FLOPS), nbytes2)
+        row2.update(tiling2)
         emit("k2_train", **row2)
         if not err2 <= K2_ATOL:
             raise AssertionError(f"K2 float32 r={r} t={t} g={g} {kind} flow: max abs err {err2} > {K2_ATOL}")
@@ -680,6 +775,8 @@ def phase_k3(torch, np, against=None) -> dict:
         emit("k3_zero_window", case=name, all_zero=zeros)
         if not zeros:
             raise AssertionError(f"K3 {name} flow did not give an all-zero gradient")
+    corr_host_cost(torch, "k3_host_us_per_launch", kernels.local_corr_bwd, against and against.local_corr_bwd,
+                   (6, 64, 56, 32, TRAIN_BATCH, torch.float32))
     return summary_row(rows)
 
 
@@ -830,6 +927,9 @@ def phase_trainer(torch, np, m) -> dict:
     kernel_ms = sum(device_us(e) for e in evts) / 1e3
     top = sorted(evts, key=device_us, reverse=True)[:12]
     ours = own_kernels_ms(evts)
+    batch = synth_batch(torch, np, rng, b, res)
+    emit("corr_model_flows", path="train_step", batch=b,
+         launches=corr_model_flows(torch, lambda: step_fn(state, batch)))
     result = {"steps": len(log), "batch": b, "res": res, "step_ms_median": statistics.median(walls),
               "step_ms_runs": walls, "pairs_per_s": b / (statistics.median(walls) / 1e3),
               "max_memory_allocated": peak, "losses": losses, "launches_per_step": log[-1]["launches"],
@@ -877,10 +977,10 @@ def main() -> int:
         info = phase_device(torch)
         phase_build()
         k1 = phase_k1(torch, info["exp_per_s"])
-        k2 = phase_k2(torch, np)
+        k2 = phase_k2(torch)
         phase_tiny(torch, np)
         flag, matcher = phase_flagship(torch, np)
-        k3 = phase_k3(torch, np)
+        k3 = phase_k3(torch)
         phase_tiny_grads(torch, np)
         train = phase_trainer(torch, np, matcher)
     except Exception:

@@ -102,13 +102,12 @@ local_corr_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict__
   extern __shared__ uint8_t smem_raw[];
   __shared__ TileState st;
   uint8_t* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
-  const CorrSmem lay = corr_smem(t, sizeof(T));
-  float* dots = reinterpret_cast<float*>(smem + lay.cells);
-  uint4* qs = reinterpret_cast<uint4*>(smem + lay.query);
-  const int* table = reinterpret_cast<const int*>(smem + lay.table);
+  float* dots = reinterpret_cast<float*>(smem + t.smem_cells);
+  uint4* qs = reinterpret_cast<uint4*>(smem + t.smem_query);
+  const int* table = reinterpret_cast<const int*>(smem + t.smem_table);
 
   const int b = blockIdx.z, gy0 = blockIdx.y * t.tile_y, gx0 = blockIdx.x * t.tile_x;
-  const bool staged = tile_setup(st, reinterpret_cast<int*>(smem + lay.table), flow, t, b, gy0, gx0);
+  const bool staged = tile_setup(st, reinterpret_cast<int*>(smem + t.smem_table), flow, t, b, gy0, gx0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int cells = t.tile_y * t.tile_x;
   const int win = 2 * t.radius + 2, win2 = win * win, taps = win - 1;
@@ -181,7 +180,7 @@ cudaError_t launch(const void* query, const void* target, const void* flow, void
   static int allowed[64] = {};
   CUtensorMap map;
   if (!corr_target_map(&map, target, t, sizeof(T))) return cudaErrorInvalidValue;
-  const int smem = corr_smem(t, sizeof(T)).total;
+  const int smem = t.smem_total;
   cudaError_t err = corr_allow_smem(local_corr_kernel<T, L>, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((t.g2 + t.tile_x - 1) / t.tile_x, (t.g1 + t.tile_y - 1) / t.tile_y, t.batch);
@@ -194,7 +193,7 @@ cudaError_t launch(const void* query, const void* target, const void* flow, void
 template <typename T>
 cudaError_t dispatch(const void* query, const void* target, const void* flow, void* out,
                      const CorrTiling& t, float inv_sqrt_c, cudaStream_t stream) {
-  switch (corr_lanes(t, sizeof(T))) {
+  switch (corr_lanes(t, sizeof(T), true)) {
     case 1:
       return launch<T, 1>(query, target, flow, out, t, inv_sqrt_c, stream);
     case 2:
@@ -213,15 +212,17 @@ cudaError_t dispatch(const void* query, const void* target, const void* flow, vo
 // query (B, G1, G2, C) and target (B, H, W, C) contiguous and 16-byte
 // aligned, float32 or bf16 alike; flow (B, G1, G2, 2) float32 normalized xy;
 // out (B, G1, G2, (2r+1)²) float32. The tiling (cells a block owns, the box
-// it may stage, channels per stage) comes from the wrapper. Returns the
+// it may stage, channels per stage, the shared-memory layout) comes from
+// the wrapper. Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int gfnet_local_corr(const void* query, const void* target, const void* flow,
                                 void* out, int batch, int g1, int g2, int height, int width,
                                 int channels, int radius, int tile_y, int tile_x, int box_h,
-                                int box_w, int chunk, float inv_sqrt_c, int is_bf16,
+                                int box_w, int chunk, int smem_cells, int smem_query,
+                                int smem_table, int smem_total, float inv_sqrt_c, int is_bf16,
                                 void* stream) {
   const CorrTiling t{batch, g1, g2, height, width, channels, radius, tile_y, tile_x, box_h,
-                     box_w, chunk};
+                     box_w, chunk, smem_cells, smem_query, smem_table, smem_total};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return dispatch<__nv_bfloat16>(query, target, flow, out, t, inv_sqrt_c, s);
   return dispatch<float>(query, target, flow, out, t, inv_sqrt_c, s);

@@ -82,12 +82,11 @@ local_corr_bwd_kernel(const __grid_constant__ CUtensorMap map, const float* __re
   extern __shared__ uint8_t smem_raw[];
   __shared__ TileState st;
   uint8_t* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
-  const CorrSmem lay = corr_smem(t, sizeof(T));
-  float* sw_all = reinterpret_cast<float*>(smem + lay.cells);
-  const int* table = reinterpret_cast<const int*>(smem + lay.table);
+  float* sw_all = reinterpret_cast<float*>(smem + t.smem_cells);
+  const int* table = reinterpret_cast<const int*>(smem + t.smem_table);
 
   const int b = blockIdx.z, gy0 = blockIdx.y * t.tile_y, gx0 = blockIdx.x * t.tile_x;
-  const bool staged = tile_setup(st, reinterpret_cast<int*>(smem + lay.table), flow, t, b, gy0, gx0);
+  const bool staged = tile_setup(st, reinterpret_cast<int*>(smem + t.smem_table), flow, t, b, gy0, gx0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int cells = t.tile_y * t.tile_x;
   const int win = 2 * t.radius + 2, win2 = win * win, taps = win - 1;
@@ -157,7 +156,7 @@ cudaError_t launch(const void* grad, const void* target, const void* flow, void*
   static int allowed[64] = {};
   CUtensorMap map;
   if (!corr_target_map(&map, target, t, sizeof(T))) return cudaErrorInvalidValue;
-  const int smem = corr_smem(t, sizeof(T)).total;
+  const int smem = t.smem_total;
   cudaError_t err = corr_allow_smem(local_corr_bwd_kernel<T, L>, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((t.g2 + t.tile_x - 1) / t.tile_x, (t.g1 + t.tile_y - 1) / t.tile_y, t.batch);
@@ -170,7 +169,7 @@ cudaError_t launch(const void* grad, const void* target, const void* flow, void*
 template <typename T>
 cudaError_t dispatch(const void* grad, const void* target, const void* flow, void* dq,
                      const CorrTiling& t, float inv_sqrt_c, cudaStream_t stream) {
-  switch (corr_lanes(t, sizeof(T))) {
+  switch (corr_lanes(t, sizeof(T), false)) {
     case 1:
       return launch<T, 1>(grad, target, flow, dq, t, inv_sqrt_c, stream);
     case 2:
@@ -189,15 +188,16 @@ cudaError_t dispatch(const void* grad, const void* target, const void* flow, voi
 // grad (B, G1, G2, (2r+1)²) float32, target (B, H, W, C) float32 or bf16
 // (16-byte aligned), flow (B, G1, G2, 2) float32 normalized xy, all
 // contiguous; dq (B, G1, G2, C) float32, 16-byte aligned. The tiling comes
-// from the wrapper, as for the forward. Returns the cudaError_t of the launch
-// (0 on success).
+// from the wrapper, as for the forward, laid out without query rows. Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int gfnet_local_corr_bwd(const void* grad, const void* target, const void* flow,
                                     void* dq, int batch, int g1, int g2, int height, int width,
                                     int channels, int radius, int tile_y, int tile_x, int box_h,
-                                    int box_w, int chunk, float inv_sqrt_c, int target_is_bf16,
-                                    void* stream) {
+                                    int box_w, int chunk, int smem_cells, int smem_query,
+                                    int smem_table, int smem_total, float inv_sqrt_c,
+                                    int target_is_bf16, void* stream) {
   const CorrTiling t{batch, g1, g2, height, width, channels, radius, tile_y, tile_x, box_h,
-                     box_w, chunk};
+                     box_w, chunk, smem_cells, smem_query, smem_table, smem_total};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (target_is_bf16) return dispatch<__nv_bfloat16>(grad, target, flow, dq, t, inv_sqrt_c, s);
   return dispatch<float>(grad, target, flow, dq, t, inv_sqrt_c, s);

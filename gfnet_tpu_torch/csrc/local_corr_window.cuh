@@ -76,35 +76,20 @@ constexpr int kCorrWarps = 8;
 constexpr int kCorrThreads = kCorrWarps * 32;
 constexpr int kMaxTileCells = 64;
 
-// A launch's shapes and its tiling, as the wrapper chose it.
+// A launch's shapes and its tiling, as the wrapper chose it, with the layout
+// of a block's dynamic shared memory (`ops/kernels.py: corr_layout` makes it;
+// `corr_lanes` checks that each area holds what the kernels write there).
 struct CorrTiling {
   int batch, g1, g2, height, width, channels, radius;
   int tile_y, tile_x;  // cells a block owns
   int box_h, box_w;    // target pixels a block may stage
   int chunk;           // channels per stage: 16, 32, 64 or 128 bytes of a pixel
+  // byte offsets of the areas after the box at 0: (2r+2)² floats for each
+  // cell (K2's patch dots, K3's spread gradient), the cells' query rows (K2
+  // only), the table of patch pixels; and the size, with 128 bytes of slack
+  // that align the base
+  int smem_cells, smem_query, smem_table, smem_total;
 };
-
-__host__ __device__ __forceinline__ int align128(int x) { return (x + 127) & ~127; }
-
-// Offsets into a block's dynamic shared memory: the box of one chunk at 0,
-// then win² floats for each cell of the tile (K2's patch dots, K3's spread
-// gradient), then the tile's query rows (K2), then the table of patch
-// pixels; `total` adds the slack that aligns the base to 128 bytes.
-// `ops/kernels.py: corr_smem_bytes` repeats it.
-struct CorrSmem {
-  int cells, query, table, total;
-};
-
-__host__ __device__ __forceinline__ CorrSmem corr_smem(const CorrTiling& t, int elem) {
-  const int win2 = (2 * t.radius + 2) * (2 * t.radius + 2);
-  const int cells = t.tile_y * t.tile_x;
-  CorrSmem s;
-  s.cells = align128(t.box_h * t.box_w * t.chunk * elem);
-  s.query = s.cells + align128(cells * win2 * 4);
-  s.table = s.query + align128(cells * t.channels * elem);
-  s.total = s.table + align128(win2 * 4) + 128;
-  return s;
-}
 
 struct TileState {
   CorrWindow win[kMaxTileCells];
@@ -314,15 +299,23 @@ inline bool corr_target_map(CUtensorMap* map, const void* target, const CorrTili
          CUDA_SUCCESS;
 }
 
-// The checks both launchers make on a tiling, and its vectors per chunk pixel
-// (the lanes that share one pixel): 0 if the launch cannot take it.
-inline int corr_lanes(const CorrTiling& t, int elem) {
+// The checks both launchers make on a tiling and its layout (`query_rows`:
+// the kernel keeps the cells' query rows, as K2 does), and its vectors per
+// chunk pixel (the lanes that share one pixel): 0 if the launch cannot take it.
+inline int corr_lanes(const CorrTiling& t, int elem, bool query_rows) {
   const int win = 2 * t.radius + 2;
   if (t.batch <= 0 || t.g1 <= 0 || t.g2 <= 0 || t.height <= 0 || t.width <= 0 ||
       t.channels <= 0 || t.radius < 0 || t.tile_y <= 0 || t.tile_x <= 0 ||
       t.tile_y * t.tile_x > kMaxTileCells || t.box_h < win || t.box_w < win || t.box_h > 256 ||
       t.box_w > 256 || t.chunk <= 0 || t.channels % t.chunk || (t.channels * elem) % 16 ||
       win > 128)
+    return 0;
+  const long long cells = t.tile_y * t.tile_x, win2 = win * win;
+  if ((t.smem_cells | t.smem_query | t.smem_table) & 127 ||
+      t.smem_cells < (long long)t.box_h * t.box_w * t.chunk * elem ||
+      t.smem_query - t.smem_cells < cells * win2 * 4 ||
+      t.smem_table - t.smem_query < (query_rows ? cells * t.channels * elem : 0) ||
+      t.smem_total - 128 - t.smem_table < win2 * 4)
     return 0;
   const int lanes = t.chunk * elem / 16;
   return (t.chunk * elem) % 16 == 0 && (lanes == 1 || lanes == 2 || lanes == 4 || lanes == 8)

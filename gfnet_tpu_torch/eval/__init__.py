@@ -1,1 +1,3 @@
-"""Evaluation helpers; today the synthetic homography stream."""
+"""Evaluation helpers: the synthetic homography stream (`synthetic`) and the
+synthetic flows the local-correlation kernels are checked and timed on
+(`flows`)."""

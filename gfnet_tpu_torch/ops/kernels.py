@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import math
 import os
@@ -88,7 +89,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.gfnet_oneshot_attention.argtypes = [p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, f, i, p]
     lib.gfnet_oneshot_attention.restype = i
-    corr = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, f, i, p]
+    corr = [p, p, p, p] + [i] * 16 + [f, i, p]
     lib.gfnet_local_corr.argtypes = corr
     lib.gfnet_local_corr.restype = i
     lib.gfnet_local_corr_bwd.argtypes = corr
@@ -193,18 +194,25 @@ class CorrSchedule:
     tile: tuple[int, int]  # cells a block owns, (rows, columns)
     box: tuple[int, int]   # target pixels a block may stage, (rows, columns)
     chunk: int             # channels per stage
+    # byte offsets into the block's dynamic shared memory of the cells' area,
+    # the query rows and the pixel table, and its size
+    smem: tuple[int, int, int, int]
 
 
-def corr_smem_bytes(radius: int, channels: int, tile: tuple[int, int], box: tuple[int, int],
-                    chunk: int, elem: int) -> int:
-    """Dynamic shared memory of a K2/K3 block, as `corr_smem` in
-    `csrc/local_corr_window.cuh` lays it out: the box of one chunk, win²
-    floats for each cell, the cells' query rows, the table of win² patch
-    pixels, 128 bytes of alignment slack."""
+def corr_layout(radius: int, channels: int, elem: int, tile: tuple[int, int], box: tuple[int, int],
+                chunk: int, query_rows: bool) -> CorrSchedule:
+    """A K2/K3 schedule with its block's dynamic shared memory laid out. The
+    layout is made here alone and handed to the kernels: the box of one chunk
+    at 0, then (2r+2)² floats for each cell (K2's patch dots, K3's spread
+    gradient), then the cells' query rows (K2 only: `query_rows`), then the
+    table of (2r+2)² patch pixels, each area aligned to 128 bytes, and 128
+    bytes of slack that align the base."""
     a = lambda x: (x + 127) // 128 * 128
     win2, cells = (2 * radius + 2) ** 2, tile[0] * tile[1]
-    return (a(box[0] * box[1] * chunk * elem) + a(cells * win2 * 4) + a(cells * channels * elem)
-            + a(win2 * 4) + 128)
+    cell_area = a(box[0] * box[1] * chunk * elem)
+    query = cell_area + a(cells * win2 * 4)
+    table = query + (a(cells * channels * elem) if query_rows else 0)
+    return CorrSchedule(tuple(tile), tuple(box), chunk, (cell_area, query, table, table + a(win2 * 4) + 128))
 
 
 def corr_box(radius: int, tile: tuple[int, int], spacing: tuple[float, float]) -> tuple[int, int]:
@@ -216,18 +224,18 @@ def corr_box(radius: int, tile: tuple[int, int], spacing: tuple[float, float]) -
                  for n, s in zip(tile, spacing))
 
 
+@functools.lru_cache(maxsize=256)
 def corr_schedule(radius: int, channels: int, elem: int, height: int, width: int,
-                  g1: int, g2: int, batch: int) -> CorrSchedule:
-    """Tile, box and chunk of a K2/K3 launch. The chunk is the largest run of
-    channels up to 128 bytes (eight 16-byte vectors, a power of two of them)
-    that divides a pixel; the tile is the largest of `CORR_TILES` that gives
-    a warp at most `CORR_WARP_PIXELS` patch pixels (a warp's cells run one
-    after another; `scripts/probe_corr_schedule_torch.py` times the rule
-    against its variants), whose grid has at least `CORR_MIN_BLOCKS` blocks (else the
-    smallest) and whose block fits `CORR_SMEM_BUDGET`; where none fits, the
-    chunk halves. Raises where
-    the target cannot be staged by TMA: a pixel that is not a multiple of 16
-    bytes, or a window that no box holds."""
+                  g1: int, g2: int, batch: int, query_rows: bool) -> CorrSchedule:
+    """Tile, box, chunk and layout of a K2 (`query_rows`) or K3 launch. The
+    chunk is the largest run of channels up to 128 bytes (eight 16-byte
+    vectors, a power of two of them) that divides a pixel; the tile is the
+    largest of `CORR_TILES` that gives a warp at most `CORR_WARP_PIXELS` patch
+    pixels (a warp's cells run one after another), whose grid has at least
+    `CORR_MIN_BLOCKS` blocks (else the smallest) and whose block fits
+    `CORR_SMEM_BUDGET`; where none fits, the chunk halves. Raises where the
+    target cannot be staged by TMA: a pixel that is not a multiple of 16
+    bytes, or a window that no box holds. Cached: a launch's host cost."""
     if channels * elem % 16:
         raise ValueError(f"local correlation: a target pixel of {channels} channels × {elem} bytes "
                          "is not a multiple of 16 bytes, which TMA and the 16-byte loads need")
@@ -243,24 +251,39 @@ def corr_schedule(radius: int, channels: int, elem: int, height: int, width: int
             small = tile[0] * tile[1] * (2 * radius + 2) ** 2 <= 8 * CORR_WARP_PIXELS
             if (blocks < CORR_MIN_BLOCKS or not small) and tile != CORR_TILES[-1]:
                 continue
-            box = corr_box(radius, tile, spacing)
-            if 2 * radius + 2 <= min(box) and corr_smem_bytes(radius, channels, tile, box, chunk, elem) <= CORR_SMEM_BUDGET:
-                return CorrSchedule(tile, box, chunk)
+            sched = corr_layout(radius, channels, elem, tile, corr_box(radius, tile, spacing), chunk, query_rows)
+            if 2 * radius + 2 <= min(sched.box) and sched.smem[3] <= CORR_SMEM_BUDGET:
+                return sched
         lanes //= 2
     raise ValueError(f"local correlation: radius {radius} needs a box that TMA or shared memory cannot hold")
 
 
-def _corr_check_aligned(name: str, *tensors: Tensor) -> None:
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensors must be 16-byte aligned (TMA and 16-byte loads)")
+def _corr_launch(name: str, fn, first: Tensor, target: Tensor, flow: Tensor, out: Tensor, radius: int,
+                 schedule: CorrSchedule | None) -> None:
+    """The launch K2 and K3 share: `first` is K2's query or K3's gradient."""
+    for t in (first, target, flow):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    if target.data_ptr() % 16 or (name == "local_corr" and first.data_ptr() % 16):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned (TMA and 16-byte loads)")
+    b, g1, g2, _ = flow.shape
+    _, h, w, c = target.shape
+    elem = target.element_size()
+    if schedule is None:
+        schedule = corr_schedule(radius, c, elem, h, w, g1, g2, b, name == "local_corr")
+    err = fn(first.data_ptr(), target.data_ptr(), flow.data_ptr(), out.data_ptr(), b, g1, g2, h, w, c,
+             int(radius), *schedule.tile, *schedule.box, schedule.chunk, *schedule.smem, 1.0 / math.sqrt(c),
+             int(target.dtype == torch.bfloat16), _stream(target.device))
+    _check(err, name)
 
 
-def local_corr(query: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tensor:
+def local_corr(query: Tensor, target: Tensor, flow: Tensor, radius: int,
+               schedule: CorrSchedule | None = None) -> Tensor:
     """K2: local correlation windows. query (B, G1, G2, C) and target
     (B, H, W, C) contiguous 16-byte aligned CUDA tensors of one dtype (float32
     or bf16) with C × element size a multiple of 16 bytes, flow (B, G1, G2, 2)
-    float32 → (B, G1, G2, (2r+1)²) float32, ky-major."""
+    float32 → (B, G1, G2, (2r+1)²) float32, ky-major. `schedule`: the tiling
+    to launch with (`corr_layout`), by default `corr_schedule`'s."""
     _require_cuda("local_corr", query, target, flow)
     if query.dtype not in (torch.float32, torch.bfloat16) or target.dtype != query.dtype:
         raise ValueError(f"local_corr: dtypes {query.dtype}, {target.dtype}")
@@ -273,19 +296,8 @@ def local_corr(query: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tens
         raise ValueError(f"local_corr: query {tuple(query.shape)} vs target {tuple(target.shape)}")
     if radius < 0:
         raise ValueError(f"local_corr: radius {radius}")
-    for t in (query, target, flow):
-        if not t.is_contiguous():
-            raise ValueError("local_corr: tensors must be contiguous")
-    _corr_check_aligned("local_corr", query, target)
-    h, w = target.shape[1:3]
-    sched = corr_schedule(radius, c, query.element_size(), h, w, g1, g2, b)
     out = torch.empty((b, g1, g2, (2 * radius + 1) ** 2), dtype=torch.float32, device=query.device)
-    lib = load_library()
-    err = lib.gfnet_local_corr(
-        query.data_ptr(), target.data_ptr(), flow.data_ptr(), out.data_ptr(), b, g1, g2, h, w, c,
-        int(radius), *sched.tile, *sched.box, sched.chunk, 1.0 / math.sqrt(c),
-        int(query.dtype == torch.bfloat16), _stream(query.device))
-    _check(err, "local_corr")
+    _corr_launch("local_corr", load_library().gfnet_local_corr, query, target, flow, out, radius, schedule)
     local_corr.launches += 1
     return out
 
@@ -293,11 +305,13 @@ def local_corr(query: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tens
 local_corr.launches = 0
 
 
-def local_corr_bwd(grad: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tensor:
+def local_corr_bwd(grad: Tensor, target: Tensor, flow: Tensor, radius: int,
+                   schedule: CorrSchedule | None = None) -> Tensor:
     """K3: gradient of K2's windows in the query. grad (B, G1, G2, (2r+1)²)
     float32, target (B, H, W, C) float32 or bf16 (16-byte aligned, C ×
     element size a multiple of 16 bytes), flow (B, G1, G2, 2) float32, all
-    contiguous CUDA tensors → dq (B, G1, G2, C) float32."""
+    contiguous CUDA tensors → dq (B, G1, G2, C) float32. `schedule` as for
+    `local_corr`, laid out without query rows."""
     _require_cuda("local_corr_bwd", grad, target, flow)
     if grad.dtype != torch.float32 or flow.dtype != torch.float32:
         raise ValueError(f"local_corr_bwd: grad and flow must be float32, got {grad.dtype}, {flow.dtype}")
@@ -310,20 +324,9 @@ def local_corr_bwd(grad: Tensor, target: Tensor, flow: Tensor, radius: int) -> T
             or flow.shape != grad.shape[:3] + (2,) or target.shape[0] != grad.shape[0]):
         raise ValueError(f"local_corr_bwd: shapes {tuple(grad.shape)}, {tuple(target.shape)}, "
                          f"{tuple(flow.shape)} at radius {radius}")
-    for t in (grad, target, flow):
-        if not t.is_contiguous():
-            raise ValueError("local_corr_bwd: tensors must be contiguous")
-    _corr_check_aligned("local_corr_bwd", target)
     b, g1, g2, _ = grad.shape
-    _, h, w, c = target.shape
-    sched = corr_schedule(radius, c, target.element_size(), h, w, g1, g2, b)
-    dq = torch.empty((b, g1, g2, c), dtype=torch.float32, device=grad.device)
-    lib = load_library()
-    err = lib.gfnet_local_corr_bwd(
-        grad.data_ptr(), target.data_ptr(), flow.data_ptr(), dq.data_ptr(), b, g1, g2, h, w, c,
-        int(radius), *sched.tile, *sched.box, sched.chunk, 1.0 / math.sqrt(c),
-        int(target.dtype == torch.bfloat16), _stream(grad.device))
-    _check(err, "local_corr_bwd")
+    dq = torch.empty((b, g1, g2, target.shape[3]), dtype=torch.float32, device=grad.device)
+    _corr_launch("local_corr_bwd", load_library().gfnet_local_corr_bwd, grad, target, flow, dq, radius, schedule)
     local_corr_bwd.launches += 1
     return dq
 

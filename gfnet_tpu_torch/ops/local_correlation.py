@@ -18,9 +18,9 @@ of their windows in shared memory where it fits a box of the launch
 (`csrc/local_corr_window.cuh`). `corr_tile_boxes` repeats that decision, and
 `local_corr_tiled_plain` / `local_corr_dq_tiled_plain` repeat the schedule
 (tile → union box → patches gathered from the staged box or per cell) in
-PyTorch, so that the CPU tests reach its indexing; tests and `chip_smoke.py`
-use them, the model does not. `homography_flow` makes the smooth flow the
-refiners see, against which the schedule is timed.
+PyTorch, so that the CPU tests reach its indexing: they gather the patches
+as the kernels fetch them and hand them to the plain versions' arithmetic.
+Tests and `chip_smoke.py` use them, the model does not.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gfnet_tpu_torch.core.geometry import get_perspective_transform, normalized_grid, transform_points
 from gfnet_tpu_torch.ops import kernels
 
 Tensor = torch.Tensor
@@ -72,14 +71,17 @@ def _window_patches(target: Tensor, flow: Tensor, radius: int):
     return patches, fx, fy
 
 
-def _local_correlation_patch(query: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tensor:
+def _local_correlation_patch(query: Tensor, target: Tensor, flow: Tensor, radius: int,
+                             patches=None) -> Tensor:
     """Plain version of K2. All (2r+1)² taps of a cell share one fractional
     offset on the integer pixel lattice, so one (2r+2)² patch of the
     zero-padded target and a four-corner combine reproduce bilinear
-    zeros-padding sampling exactly. Dots and combine in float32."""
+    zeros-padding sampling exactly. Dots and combine in float32. `patches`:
+    (patches, fx, fy) gathered otherwise, as `_tiled_patches` gathers them;
+    by default `_window_patches`'."""
     b, g1, g2, c = query.shape
     win = 2 * radius + 2
-    patches, fx, fy = _window_patches(target, flow, radius)
+    patches, fx, fy = _window_patches(target, flow, radius) if patches is None else patches
     q = query.reshape(b * g1 * g2, 1, 1, c).float()
     s = (patches.float() * q).sum(-1)  # (N, win, win)
     comb = (
@@ -91,16 +93,17 @@ def _local_correlation_patch(query: Tensor, target: Tensor, flow: Tensor, radius
     return comb.reshape(b, g1, g2, (2 * radius + 1) ** 2) / float(np.sqrt(c))
 
 
-def local_corr_dq_plain(g: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tensor:
+def local_corr_dq_plain(g: Tensor, target: Tensor, flow: Tensor, radius: int, patches=None) -> Tensor:
     """Plain version of K3: the gradient of `_local_correlation_patch` in the
     query, written out. g (B, G1, G2, (2r+1)²) is spread over the (2r+2)²
     patch with the four corner weights (the adjoint of the combine), then
     contracted with the target patch and scaled by 1/√C → (B, G1, G2, C)
-    float32. Target and flow get no gradient."""
+    float32. Target and flow get no gradient. `patches` as for
+    `_local_correlation_patch`."""
     b, g1, g2, k = g.shape
     c = target.shape[-1]
     win, taps = 2 * radius + 2, 2 * radius + 1
-    patches, fx, fy = _window_patches(target, flow, radius)
+    patches, fx, fy = _window_patches(target, flow, radius) if patches is None else patches
     gt = g.float().reshape(b * g1 * g2, taps, taps)
     sw = gt.new_zeros((b * g1 * g2, win, win))
     sw[:, : win - 1, : win - 1] += (1 - fy) * (1 - fx) * gt
@@ -168,8 +171,8 @@ def _tiled_patches(target: Tensor, flow: Tensor, radius: int, tile: tuple[int, i
     """Each cell's (2r+2)² patch (N, win, win, C) as the kernels fetch it: a
     tile whose union fits the box is staged (the box cut from the map at the
     union's corner, zeros off the map) and its cells index into the box; the
-    cells of other tiles read the map, zeros off it; cells outside get zeros.
-    Also fx, fy (N, 1, 1) and `outside` (N,)."""
+    cells of other tiles read the map, zeros off it; cells outside get zeros
+    (and so give zeros). Also fx, fy (N, 1, 1)."""
     b, g1, g2, _ = flow.shape
     _, h, w, c = target.shape
     win = 2 * radius + 2
@@ -206,70 +209,22 @@ def _tiled_patches(target: Tensor, flow: Tensor, radius: int, tile: tuple[int, i
         patches[from_map] = tp[bi[from_map][:, None, None], (y0[from_map][:, None] + pad + ar)[:, :, None],
                                (x0[from_map][:, None] + pad + ar)[:, None, :]]
     n = b * g1 * g2
-    return (patches.reshape(n, win, win, c), fx.reshape(n, 1, 1), fy.reshape(n, 1, 1),
-            outside.reshape(n))
+    return patches.reshape(n, win, win, c), fx.reshape(n, 1, 1), fy.reshape(n, 1, 1)
 
 
 def local_corr_tiled_plain(query: Tensor, target: Tensor, flow: Tensor, radius: int,
                            tile: tuple[int, int], box: tuple[int, int]) -> Tensor:
-    """K2's schedule in PyTorch: patches from `_tiled_patches`, dots and the
-    four-corner combine in float32, zeros for cells outside."""
-    b, g1, g2, c = query.shape
-    win = 2 * radius + 2
-    patches, fx, fy, outside = _tiled_patches(target, flow, radius, tile, box)
-    s = (patches.float() * query.reshape(b * g1 * g2, 1, 1, c).float()).sum(-1)
-    comb = ((1 - fy) * (1 - fx) * s[:, : win - 1, : win - 1] + (1 - fy) * fx * s[:, : win - 1, 1:]
-            + fy * (1 - fx) * s[:, 1:, : win - 1] + fy * fx * s[:, 1:, 1:])
-    comb = torch.where(outside[:, None, None], torch.zeros_like(comb), comb)
-    return comb.reshape(b, g1, g2, (2 * radius + 1) ** 2) / float(np.sqrt(c))
+    """K2's schedule in PyTorch: `_local_correlation_patch` on the patches
+    of `_tiled_patches`."""
+    return _local_correlation_patch(query, target, flow, radius,
+                                    _tiled_patches(target, flow, radius, tile, box))
 
 
 def local_corr_dq_tiled_plain(g: Tensor, target: Tensor, flow: Tensor, radius: int,
                               tile: tuple[int, int], box: tuple[int, int]) -> Tensor:
-    """K3's schedule in PyTorch: the spread gradient of `local_corr_dq_plain`
-    contracted with the patches of `_tiled_patches`; dq = 0 for cells outside."""
-    b, g1, g2, _ = g.shape
-    c = target.shape[-1]
-    win, taps = 2 * radius + 2, 2 * radius + 1
-    patches, fx, fy, outside = _tiled_patches(target, flow, radius, tile, box)
-    gt = g.float().reshape(b * g1 * g2, taps, taps)
-    sw = gt.new_zeros((b * g1 * g2, win, win))
-    sw[:, : win - 1, : win - 1] += (1 - fy) * (1 - fx) * gt
-    sw[:, : win - 1, 1:] += (1 - fy) * fx * gt
-    sw[:, 1:, : win - 1] += fy * (1 - fx) * gt
-    sw[:, 1:, 1:] += fy * fx * gt
-    dq = torch.einsum("nyx,nyxc->nc", sw, patches.float())
-    dq = torch.where(outside[:, None], torch.zeros_like(dq), dq)
-    return dq.reshape(b, g1, g2, c) / float(np.sqrt(c))
-
-
-def homography_flow(rng: np.random.Generator, batch: int, grid: int, target_hw: tuple[int, int],
-                    perturb: float = 0.25, jitter: float = 0.5, broken: float = 0.0) -> Tensor:
-    """(B, G, G, 2) float32 flow of a homography, as the refiners see it: the
-    four corners of the normalized frame moved by up to `perturb` of the side
-    (as `data/homography_synth._four_point_warp` perturbs them), the G × G
-    cell centres of `normalized_grid` mapped through it, plus independent
-    per-cell jitter of up to `jitter` target pixels. A share `broken` of the
-    cells, drawn at random, is set in turns to NaN, to a point far outside the
-    map, and to a uniform random point of the map (which breaks its tile's
-    union)."""
-    corners = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float32)
-    moved = corners + rng.uniform(-2 * perturb, 2 * perturb, (batch, 4, 2)).astype(np.float32)
-    H = get_perspective_transform(torch.from_numpy(np.broadcast_to(corners, (batch, 4, 2)).copy()),
-                                  torch.from_numpy(moved))
-    centres = normalized_grid(grid, grid).reshape(1, grid * grid, 2).expand(batch, -1, -1)
-    flow = transform_points(H, centres).reshape(batch, grid, grid, 2)
-    scale = torch.tensor([2.0 / target_hw[1], 2.0 / target_hw[0]])
-    noise = torch.from_numpy(rng.uniform(-jitter, jitter, (batch, grid, grid, 2)).astype(np.float32))
-    flow = (flow + noise * scale).float()
-    n = int(round(broken * batch * grid * grid))
-    if n:
-        cells = torch.from_numpy(rng.choice(batch * grid * grid, n, replace=False))
-        flat = flow.reshape(-1, 2)
-        flat[cells[0::3]] = float("nan")
-        flat[cells[1::3]] = 5.0
-        flat[cells[2::3]] = torch.from_numpy(rng.uniform(-1, 1, (len(cells[2::3]), 2)).astype(np.float32))
-    return flow.contiguous()
+    """K3's schedule in PyTorch: `local_corr_dq_plain` on the patches of
+    `_tiled_patches`."""
+    return local_corr_dq_plain(g, target, flow, radius, _tiled_patches(target, flow, radius, tile, box))
 
 
 class _LocalCorrelationCUDA(torch.autograd.Function):

@@ -76,13 +76,13 @@ def k3_scale_off(grad, target, flow, radius):
     return REAL_K3(grad, target, flow, radius) * 1.01
 
 
-def _right_edge_last_column(target, flow, radius):
+def _right_edge_last_column(target, flow, radius, query_rows):
     """The patches' last column (N, win, C) float32, zeroed except for the
-    cells on their tile's right edge (as the kernels tile this launch), and
-    the corner offsets fx, fy (N, 1)."""
+    cells on their tile's right edge (as K2, `query_rows`, or K3 tiles this
+    launch), and the corner offsets fx, fy (N, 1)."""
     b, g1, g2, _ = flow.shape
     _, h, w, c = target.shape
-    tile = kernels.corr_schedule(radius, c, target.element_size(), h, w, g1, g2, b).tile
+    tile = kernels.corr_schedule(radius, c, target.element_size(), h, w, g1, g2, b, query_rows).tile
     patches, fx, fy = _window_patches(target, flow, radius)
     gx = torch.arange(g2, device=flow.device)
     edge = ((gx % tile[1] == tile[1] - 1) | (gx == g2 - 1)).expand(b, g1, g2).reshape(-1)
@@ -91,7 +91,7 @@ def _right_edge_last_column(target, flow, radius):
 
 def k2_right_edge_column_dropped(query, target, flow, radius):
     out = REAL_K2(query, target, flow, radius)
-    col, fx, fy = _right_edge_last_column(target, flow, radius)
+    col, fx, fy = _right_edge_last_column(target, flow, radius, True)
     c = query.shape[-1]
     s = (col * query.reshape(-1, 1, c).float()).sum(-1)  # dots of the last column (N, win)
     # the column meets the taps kx = 2r through the corners w01 and w11
@@ -103,7 +103,7 @@ def k2_right_edge_column_dropped(query, target, flow, radius):
 
 def k3_right_edge_column_dropped(grad, target, flow, radius):
     dq = REAL_K3(grad, target, flow, radius)
-    col, fx, fy = _right_edge_last_column(target, flow, radius)
+    col, fx, fy = _right_edge_last_column(target, flow, radius, False)
     taps = 2 * radius + 1
     g = grad.reshape(-1, taps, taps)[:, :, -1]  # the gradient of taps kx = 2r
     sw = torch.zeros_like(col[..., 0])
@@ -139,7 +139,7 @@ def kernel_faults(caught: list) -> None:
     for i, (r, c, t, g) in enumerate(((6, 64, 70, 40), (2, 16, 280, 160))):
         query = torch.randn((2, g, g, c), generator=gen, device="cuda").to(torch.bfloat16)
         target = torch.randn((2, t, t, c), generator=gen, device="cuda").to(torch.bfloat16)
-        flow = chip_smoke.corr_flow(torch, np, "homography", 2, g, t, 40 + i)
+        flow = chip_smoke.corr_flow(torch, "homography", 2, g, t, 40 + i)
         err = (k2_right_edge_column_dropped(query, target, flow, r)
                - _local_correlation_patch(query, target, flow, r)).abs().max().item()
         report(f"k2_right_edge_column_dropped r{r} q{g} t{t} C{c} homography", "k2", err,
@@ -161,7 +161,7 @@ def k3_faults(caught: list) -> None:
         b = chip_smoke.TRAIN_BATCH
         query = torch.randn((b, g, g, c), generator=gen, device="cuda")
         target = torch.randn((b, t, t, c), generator=gen, device="cuda")
-        flow = chip_smoke.corr_flow(torch, np, "homography", b, g, t, 50 + i)
+        flow = chip_smoke.corr_flow(torch, "homography", b, g, t, 50 + i)
         grad = torch.randn((b, g, g, (2 * r + 1) ** 2), generator=gen, device="cuda")
         err = (k3_right_edge_column_dropped(grad, target, flow, r)
                - local_corr_dq_plain(grad, target, flow, r)).abs().max().item()

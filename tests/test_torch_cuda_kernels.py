@@ -8,17 +8,16 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
 
 import math
 
-import numpy as np
 import pytest
 import torch
 
+from gfnet_tpu_torch.eval.flows import kernel_flow
 from gfnet_tpu_torch.ops import kernels
 from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, fused_attention,
                                            scaled_dot_product_attention, streamed_attention_plain)
 from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, corr_tile_boxes,
-                                                   homography_flow, local_corr_dq_plain,
-                                                   local_corr_dq_tiled_plain, local_corr_tiled_plain,
-                                                   local_correlation)
+                                                   local_corr_dq_plain, local_corr_dq_tiled_plain,
+                                                   local_corr_tiled_plain, local_correlation)
 
 pytestmark = pytest.mark.cuda
 
@@ -170,15 +169,6 @@ CORR_MAIN_SHAPES = [(7, 64, 32, 32, 8, torch.float32), (6, 64, 56, 32, 8, torch.
                     (6, 64, 70, 40, 2, torch.bfloat16)]
 
 
-def _corr_flow(kind, b, g, t, seed):
-    """Homography flow (the tiles stage), uniform random flow (they do not),
-    or a homography with 3% of its cells NaN, far out or random (both)."""
-    rng = np.random.default_rng(seed)
-    if kind == "random":
-        return torch.from_numpy(rng.uniform(-1.1, 1.1, (b, g, g, 2)).astype(np.float32))
-    return homography_flow(rng, b, g, (t, t), broken=0.03 if kind == "mixed" else 0.0)
-
-
 @pytest.mark.parametrize("kind", ["homography", "random", "mixed"])
 @pytest.mark.parametrize("radius,c,t,g,b,dtype", CORR_MAIN_SHAPES)
 def test_local_corr_tiles_match_plain(cuda_device, kind, radius, c, t, g, b, dtype):
@@ -189,8 +179,9 @@ def test_local_corr_tiles_match_plain(cuda_device, kind, radius, c, t, g, b, dty
     q = torch.randn((b, g, g, c), generator=gen, device=cuda_device).to(dtype)
     tg = torch.randn((b, t, t, c), generator=gen, device=cuda_device).to(dtype)
     grad = torch.randn((b, g, g, (2 * radius + 1) ** 2), generator=gen, device=cuda_device)
-    fl = _corr_flow(kind, b, g, t, 6).to(cuda_device)
-    sched = kernels.corr_schedule(radius, c, tg.element_size(), t, t, g, g, b)
+    fl = kernel_flow(kind, b, g, t, 6).to(cuda_device)
+    sched = kernels.corr_schedule(radius, c, tg.element_size(), t, t, g, g, b, True)
+    sched3 = kernels.corr_schedule(radius, c, tg.element_size(), t, t, g, g, b, False)
     _, staged = corr_tile_boxes(fl.cpu(), t, t, radius, sched.tile, sched.box)
     share = staged.float().mean().item()
     assert {"homography": share > 0.85, "random": share == 0.0, "mixed": 0.0 < share < 1.0}[kind], share
@@ -201,7 +192,7 @@ def test_local_corr_tiles_match_plain(cuda_device, kind, radius, c, t, g, b, dty
     torch.testing.assert_close(dq, local_corr_dq_plain(grad, tg, fl, radius), rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(out, local_corr_tiled_plain(q, tg, fl, radius, sched.tile, sched.box),
                                rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(dq, local_corr_dq_tiled_plain(grad, tg, fl, radius, sched.tile, sched.box),
+    torch.testing.assert_close(dq, local_corr_dq_tiled_plain(grad, tg, fl, radius, sched3.tile, sched3.box),
                                rtol=1e-4, atol=1e-4)
     bad = ~torch.isfinite(fl).all(-1) | (fl.abs() > 2).any(-1)
     assert torch.count_nonzero(out[bad]) == 0 and torch.count_nonzero(dq[bad]) == 0
@@ -213,9 +204,40 @@ def test_local_corr_bwd_is_bitwise_repeatable(cuda_device, kind):
     b, g, t, c, radius = 8, 32, 56, 64, 6
     tg = torch.randn((b, t, t, c), generator=gen, device=cuda_device)
     grad = torch.randn((b, g, g, (2 * radius + 1) ** 2), generator=gen, device=cuda_device)
-    fl = _corr_flow(kind, b, g, t, 9).to(cuda_device)
+    fl = kernel_flow(kind, b, g, t, 9).to(cuda_device)
     first = kernels.local_corr_bwd(grad, tg, fl, radius)
     assert torch.equal(first, kernels.local_corr_bwd(grad, tg, fl, radius))
+
+
+@pytest.mark.parametrize("radius,c,t,g,b,dtype", CORR_MAIN_SHAPES)
+def test_local_corr_with_staging_off_matches_plain(cuda_device, radius, c, t, g, b, dtype):
+    """The same tiles with a box of one window, so that the cells read their
+    patches from global memory, on a homography flow: the schedule override
+    the benchmark times staging against."""
+    gen = torch.Generator(cuda_device).manual_seed(10)
+    q = torch.randn((b, g, g, c), generator=gen, device=cuda_device).to(dtype)
+    tg = torch.randn((b, t, t, c), generator=gen, device=cuda_device).to(dtype)
+    grad = torch.randn((b, g, g, (2 * radius + 1) ** 2), generator=gen, device=cuda_device)
+    fl = kernel_flow("homography", b, g, t, 11).to(cuda_device)
+    win, elem = 2 * radius + 2, tg.element_size()
+    offs = [kernels.corr_layout(radius, c, elem, s.tile, (win, win), s.chunk, rows)
+            for s, rows in ((kernels.corr_schedule(radius, c, elem, t, t, g, g, b, rows), rows)
+                            for rows in (True, False))]
+    assert corr_tile_boxes(fl.cpu(), t, t, radius, offs[0].tile, offs[0].box)[1].float().mean() < 0.1
+    torch.testing.assert_close(kernels.local_corr(q, tg, fl, radius, offs[0]),
+                               _local_correlation_patch(q, tg, fl, radius), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(kernels.local_corr_bwd(grad, tg, fl, radius, offs[1]),
+                               local_corr_dq_plain(grad, tg, fl, radius), rtol=1e-4, atol=1e-4)
+
+
+def test_local_corr_refuses_a_layout_too_small(cuda_device):
+    """The launcher checks that each area of the layout it is handed holds
+    what the kernel writes there: K3's layout has no room for K2's query rows."""
+    q = torch.zeros((2, 32, 32, 64), dtype=torch.bfloat16, device=cuda_device)
+    fl = torch.zeros((2, 32, 32, 2), device=cuda_device)
+    k3_layout = kernels.corr_schedule(7, 64, 2, 32, 32, 32, 32, 2, False)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.local_corr(q, q, fl, 7, k3_layout)
 
 
 def test_local_corr_refuses_what_tma_cannot_stage(cuda_device):

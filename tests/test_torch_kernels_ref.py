@@ -23,10 +23,10 @@ from gfnet_tpu.ops.pallas.oneshot_attention import oneshot_attention
 from gfnet_tpu_torch.ops import kernels
 from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, fused_attention,
                                            scaled_dot_product_attention, streamed_attention_plain)
+from gfnet_tpu_torch.eval.flows import FLOW_KINDS, homography_flow, kernel_flow
 from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, corr_tile_boxes,
-                                                   homography_flow, local_corr_dq_plain,
-                                                   local_corr_dq_tiled_plain, local_corr_tiled_plain,
-                                                   local_correlation)
+                                                   local_corr_dq_plain, local_corr_dq_tiled_plain,
+                                                   local_corr_tiled_plain, local_correlation)
 
 
 def T(a, dtype=torch.float32):
@@ -324,21 +324,67 @@ def test_corr_tile_boxes_outside_cells_widen_no_box(bad):
     assert torch.equal(corner2[0, 0, 0], want)
 
 
+# (radius, C, target side, grid side, batch, element bytes) of every K2/K3
+# launch on the main path: inference in bf16 (one pair), training in float32
+CORR_LAUNCH_SHAPES = [(7, 64, 32, 32, 2, 2), (6, 64, 56, 32, 2, 2), (6, 64, 70, 40, 2, 2),
+                      (4, 32, 112, 64, 2, 2), (4, 32, 140, 80, 2, 2), (2, 16, 224, 128, 2, 2),
+                      (2, 16, 280, 160, 2, 2), (7, 64, 32, 32, 8, 4), (6, 64, 56, 32, 8, 4),
+                      (4, 32, 112, 64, 8, 4), (2, 16, 224, 128, 8, 4)]
+
+
 def test_corr_schedule_fits_and_refuses():
     """At every main-path shape the schedule fits three blocks an SM and
-    gives at least two blocks an SM; what TMA cannot stage raises."""
-    for r, c, t, g, b, elem in [(7, 64, 32, 32, 2, 2), (6, 64, 56, 32, 2, 2), (6, 64, 70, 40, 2, 2),
-                                (4, 32, 112, 64, 2, 2), (4, 32, 140, 80, 2, 2), (2, 16, 224, 128, 2, 2),
-                                (2, 16, 280, 160, 2, 2), (7, 64, 32, 32, 8, 4), (6, 64, 56, 32, 8, 4),
-                                (4, 32, 112, 64, 8, 4), (2, 16, 224, 128, 8, 4)]:
-        s = kernels.corr_schedule(r, c, elem, t, t, g, g, b)
-        assert kernels.corr_smem_bytes(r, c, s.tile, s.box, s.chunk, elem) <= kernels.CORR_SMEM_BUDGET
-        assert b * -(-g // s.tile[0]) * -(-g // s.tile[1]) >= kernels.CORR_MIN_BLOCKS
-        assert c % s.chunk == 0 and s.chunk * elem in (16, 32, 64, 128) and max(s.box) <= 256
+    gives at least two blocks an SM, for K2 and K3; what TMA cannot stage
+    raises."""
+    for r, c, t, g, b, elem in CORR_LAUNCH_SHAPES:
+        for query_rows in (True, False):
+            s = kernels.corr_schedule(r, c, elem, t, t, g, g, b, query_rows)
+            assert s.smem[3] <= kernels.CORR_SMEM_BUDGET
+            assert b * -(-g // s.tile[0]) * -(-g // s.tile[1]) >= kernels.CORR_MIN_BLOCKS
+            assert c % s.chunk == 0 and s.chunk * elem in (16, 32, 64, 128) and max(s.box) <= 256
     with pytest.raises(ValueError, match="16 bytes"):
-        kernels.corr_schedule(1, 4, 2, 8, 8, 4, 4, 1)
+        kernels.corr_schedule(1, 4, 2, 8, 8, 4, 4, 1, True)
     with pytest.raises(ValueError, match="radius"):
-        kernels.corr_schedule(200, 8, 2, 500, 500, 4, 4, 1)
+        kernels.corr_schedule(200, 8, 2, 500, 500, 4, 4, 1, True)
+
+
+@pytest.mark.parametrize("r,c,t,g,b,elem", CORR_LAUNCH_SHAPES)
+def test_corr_layout_holds_each_area(r, c, t, g, b, elem):
+    """The shared-memory layout the kernels are handed: the box of one chunk
+    at 0, then the cells' (2r+2)² floats, the query rows (K2 only) and the
+    pixel table, each area 128-byte aligned and large enough, with 128 bytes
+    of slack; K3's leaves the query rows out."""
+    win2 = (2 * r + 2) ** 2
+    for query_rows in (True, False):
+        s = kernels.corr_schedule(r, c, elem, t, t, g, g, b, query_rows)
+        cells_at, query_at, table_at, total = s.smem
+        cells = s.tile[0] * s.tile[1]
+        assert cells_at % 128 == query_at % 128 == table_at % 128 == 0
+        assert cells_at >= s.box[0] * s.box[1] * s.chunk * elem
+        assert query_at - cells_at >= cells * win2 * 4
+        assert table_at - query_at == (-(-cells * c * elem // 128) * 128 if query_rows else 0)
+        assert total - 128 - table_at >= win2 * 4
+        same_tiling = kernels.corr_layout(r, c, elem, s.tile, s.box, s.chunk, not query_rows)
+        assert (same_tiling.smem[3] < total) == query_rows
+
+
+def test_corr_schedule_is_cached():
+    """A launch looks its schedule up: the same shapes give the same object."""
+    args = (6, 64, 2, 70, 70, 40, 40, 2, True)
+    assert kernels.corr_schedule(*args) is kernels.corr_schedule(*args)
+
+
+@pytest.mark.parametrize("kind", FLOW_KINDS)
+def test_kernel_flows_stage_as_named(kind):
+    """The flows the kernels are checked and timed on take the branches their
+    names promise at the slowest inference shape (r6, 40² cells, 70² target)."""
+    flow = kernel_flow(kind, 2, 40, 70, 20)
+    assert flow.shape == (2, 40, 40, 2) and flow.dtype == torch.float32
+    s = kernels.corr_schedule(6, 64, 2, 70, 70, 40, 40, 2, True)
+    share = corr_tile_boxes(flow, 70, 70, 6, s.tile, s.box)[1].float().mean().item()
+    assert {"homography": share > 0.85, "random": share == 0.0, "staged_only": share == 1.0,
+            "mixed": 0.0 < share < 1.0}[kind], share
+    torch.testing.assert_close(flow, kernel_flow(kind, 2, 40, 70, 20), rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("fn,args", [
