@@ -26,13 +26,24 @@ Phases, one JSON line each:
      versions), float32, same weights (seeded ViT, trained tiny head) and
      images;
   6. the main path: `GFNetMatcher.from_pretrained` at the flagship
-     `ModelConfig()` width in bf16 (seeded random ViT-L, the trained head
-     `workspace/trained_head_flagship_r5b.npz`), `estimate_homography` on one
+     `ModelConfig()` width in bf16 (the JAX package's seed-0 random ViT-L,
+     drawn bit for bit by `utils/jax_init.py`, with its draw time; the
+     trained head `workspace/trained_head_flagship_r5b.npz`),
+     `estimate_homography` on one
      448² pair and `estimate_homography_batched` on 8, with launch counts,
      throughput and peak memory; then, for B=1 and B=8, each phase (pass 1,
      pass 2, sample + solve) timed alone and profiled once for its device
      time, busy share and top kernels, and how K2 tiles the refiners' own
      flows (share of staged tiles per launch);
+  accuracy: the evaluation path on that matcher: `eval_pairs(100, 448, 0.3,
+     seed=1234)` same-modal and cross-modal, made on the card, through
+     `HomographyBenchmark` at batch 4 (the JAX oracle's protocol), with the
+     launch counts of the run. Gate: each pair's ACE against the JAX
+     package's float32 reading of the first 16 pairs of each set
+     (`gfnet_tpu_torch/eval/jax_accuracy_r5b.json`, made by
+     `scripts/read_jax_accuracy.py`; the mean |ΔACE| over the pairs JAX
+     registers below 1 px), and each set's 100-pair MACE against the TPU
+     oracle `workspace/eval_synth_r5b.json`;
   7. K3 (local_corr_bwd) against its plain version at the four shapes the
      train step gives it (B=8, float32) and with a bf16 target, plus K2 at
      those float32 shapes, on the same flows as phase 4, with two K3 launches
@@ -45,9 +56,9 @@ Phases, one JSON line each:
      with checkpoints, a restore that compares equal, the launch counts per
      step, step time, peak memory, one profiled step, and how K2 and K3 tile
      the refiners' flows of one more step.
-Then a line with the per-kernel summary (K2 and K3 at their slowest shape
-on the homography flow, the random flow's time beside it), and as the last line
-`{"ok": true, "device": {...}}`. Any failed check exits non-zero without it.
+Then the seconds the phases took, a line with the per-kernel summary (K2
+and K3 at their slowest shape on the homography flow, the random flow's time
+beside it), and as the last line `{"ok": true, "device": {...}}`. Any failed check exits non-zero without it.
 Exits non-zero without a result when CUDA is unavailable or the package is
 not beside this script.
 """
@@ -65,6 +76,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HEAD_NPZ = ROOT / "workspace" / "trained_head_flagship_r5b.npz"
 TINY_HEAD = ROOT / "workspace" / "trained_head_tiny.npz"
+JAX_ACCURACY = ROOT / "gfnet_tpu_torch" / "eval" / "jax_accuracy_r5b.json"
+ORACLE = ROOT / "workspace" / "eval_synth_r5b.json"
+# the oracle's protocol: 100 pairs a set at 448², deformation 0.3, batches of 4
+ACC_PAIRS, ACC_RES, ACC_DEFORMATION, ACC_SEED, ACC_BATCH = 100, 448, 0.3, 1234, 4
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -109,6 +124,20 @@ K3_ATOL = 1e-4
 # its incoming gradient dropped 0.53.
 TINY_LOSS_RTOL = 1e-4
 TINY_GRAD_RTOL = 8e-3
+# Accuracy at the flagship width (bf16 on the card against the JAX package in
+# float32 on the same uint8 pairs, and against the TPU oracle): the sampling
+# draws differ, so a pair's ACE moves by sampling noise, and a set's MACE by
+# that noise and by the few pairs far off. ACC_PAIR_TOL: the mean of
+# |ACE port - ACE JAX| over the compared pairs that JAX registers below
+# ACC_REGISTERED px (27 of the 32), px. Sound runs read 0.043-0.060 over four
+# sampling seeds; K2's centre tap zeroed reads 0.092, the backbone drawn before
+# the JAX draw 15.8; K1's scale off by 1% reads 0.052 and is not caught.
+# ACC_MACE_TOL: |100-pair MACE - oracle MACE| per set, px: sound runs read
+# 1.79-2.58 below the oracle (it ran on a TPU, on cv2's pairs), the backbone
+# drawn before the JAX draw 13.3 and 17.1 above; neither kernel fault moves it.
+ACC_REGISTERED = 1.0
+ACC_PAIR_TOL = 0.075
+ACC_MACE_TOL = {"synthetic": 5.0, "synthetic_crossmodal": 5.0}
 
 
 def emit(phase: str, **kw) -> None:
@@ -506,10 +535,26 @@ def phase_flagship(torch, np) -> dict:
     from gfnet_tpu_torch.matcher import GFNetMatcher
     from gfnet_tpu_torch.ops import kernels
 
+    import gfnet_tpu_torch.matcher.api as api
+
+    draw, real_draw = {}, api.jax_vit_params
+
+    def timed_draw(*args, **kw):  # the backbone's draw, timed on its own
+        t = time.perf_counter()
+        out = real_draw(*args, **kw)
+        draw["seconds"] = time.perf_counter() - t
+        return out
+
     t0 = time.perf_counter()
-    m = GFNetMatcher.from_pretrained(ckpt_path=str(HEAD_NPZ), device="cuda", dtype=torch.bfloat16, seed=0)
+    api.jax_vit_params = timed_draw
+    try:
+        m = GFNetMatcher.from_pretrained(ckpt_path=str(HEAD_NPZ), device="cuda", dtype=torch.bfloat16, seed=0)
+    finally:
+        api.jax_vit_params = real_draw
     cfg = m.cfg
     setup_s = time.perf_counter() - t0
+    emit("flagship_setup", setup_s=setup_s, backbone_draw_s=draw["seconds"],
+         backbone="jax_vit_params(ModelConfig().dino, seed=0)")
     if not cfg.dino.decoder_cfg.kv_norm:
         raise AssertionError("the r5b head should switch kv_norm on")
     rng = np.random.default_rng(4)
@@ -561,13 +606,91 @@ def phase_flagship(torch, np) -> dict:
     split = {1: phase_split(torch, m, a1[None], b1[None]), 8: phase_split(torch, m, a8, b8)}
     for bsz, run in ((1, lambda: m.estimate_homography(a1, b1)), (8, lambda: m.estimate_homography_batched(a8, b8))):
         emit("corr_model_flows", path="estimate_homography", batch=bsz, launches=corr_model_flows(torch, run))
-    result = {"setup_s": setup_s, "single_pairs_per_s": 1.0 / single_s,
+    result = {"setup_s": setup_s, "backbone_draw_s": draw["seconds"], "single_pairs_per_s": 1.0 / single_s,
               "batched_B": 8, "batched_pairs_per_s": 8.0 / batched_s,
               "phase_ms": {b: {k: v["wall_ms"] for k, v in sp.items()} for b, sp in split.items()},
               "max_memory_allocated_single": peak_single,
               "max_memory_allocated_batched": peak_batched, "launches": counts}
     emit("flagship", **result)
     return result, m
+
+
+def accuracy_pairs(torch) -> tuple[dict, float]:
+    """The oracle's two sets of synthetic pairs, made on the card: name →
+    pairs, and the seconds it took."""
+    from gfnet_tpu_torch.eval.synthetic import eval_pairs
+
+    t0 = time.perf_counter()
+    sets = [eval_pairs(ACC_PAIRS, ACC_RES, ACC_DEFORMATION, seed=ACC_SEED, cross_modal=cm, device="cuda")
+            for cm in (False, True)]
+    torch.cuda.synchronize()
+    return {p.dataset: p for p in sets}, time.perf_counter() - t0
+
+
+def accuracy_reading(torch, m, sets: dict, seed: int = 0) -> dict:
+    """Each set through `HomographyBenchmark` at batch 4, its results, and
+    the readings the accuracy gate compares: |ACE port - ACE JAX| over the
+    pairs the JAX package read (its median and largest per set, its mean over
+    the pairs JAX registers below ACC_REGISTERED px of both sets), the MACE of
+    those pairs on either side, and the 100-pair MACE against the oracle."""
+    import statistics
+
+    from gfnet_tpu_torch.eval.benchmark import HomographyBenchmark
+
+    jax_ref = json.loads(JAX_ACCURACY.read_text())["sets"]
+    oracle = json.loads(ORACLE.read_text())
+    out = {}
+    for name, pairs in sets.items():
+        bench = HomographyBenchmark(pairs)
+        results = bench.run(m, seed=seed, batch_size=ACC_BATCH)
+        ref = jax_ref[name]["ace"]
+        port = bench.errors[:len(ref)]
+        diffs = [abs(a - b) for a, b in zip(port, ref)]
+        out[name] = {"results": results, "oracle_mace": oracle[name][f"mace_{name}"],
+                     "mace_minus_oracle": results[f"mace_{name}"] - oracle[name][f"mace_{name}"],
+                     "jax_pairs": len(ref), "mace_jax_pairs_port": statistics.fmean(port),
+                     "mace_jax_pairs_jax": statistics.fmean(ref),
+                     "pair_abs_diff_median": statistics.median(diffs), "pair_abs_diff_max": max(diffs),
+                     "ace_port_jax": [[p, j] for p, j in zip(port, ref)]}
+    registered = [abs(p - j) for r in out.values() for p, j in r["ace_port_jax"] if j < ACC_REGISTERED]
+    out["registered_pairs"] = len(registered)
+    out["pair_abs_diff_registered_mean"] = statistics.fmean(registered)
+    return out
+
+
+def accuracy_failures(reading: dict) -> list:
+    """What the accuracy gate finds wrong with a reading (empty: it passes)."""
+    bad = []
+    if not reading["pair_abs_diff_registered_mean"] <= ACC_PAIR_TOL:
+        bad.append(f"mean |ACE port - ACE JAX| over the {reading['registered_pairs']} registered pairs "
+                   f"{reading['pair_abs_diff_registered_mean']} > {ACC_PAIR_TOL}")
+    for name, tol in ACC_MACE_TOL.items():
+        r = reading[name]
+        if not abs(r["mace_minus_oracle"]) <= tol:
+            bad.append(f"{name}: MACE {r['results'][f'mace_{name}']} vs the oracle's {r['oracle_mace']} (tol {tol})")
+    return bad
+
+
+def phase_accuracy(torch, m) -> dict:
+    """The evaluation path at the flagship width against the JAX package's
+    readings and the oracle; returns the launch counts of the run."""
+    from gfnet_tpu_torch.ops import kernels
+
+    sets, pair_s = accuracy_pairs(torch)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reading = accuracy_reading(torch, m, sets)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    emit("accuracy", pair_making_s=pair_s, benchmark_s=time.perf_counter() - t0, pairs=ACC_PAIRS,
+         batch=ACC_BATCH, launches=counts, pair_tol=ACC_PAIR_TOL, mace_tol=ACC_MACE_TOL,
+         **reading)
+    if counts["oneshot_attention"] == 0 or counts["local_corr"] == 0 or counts["local_corr_bwd"] != 0:
+        raise AssertionError(f"accuracy: launches {counts}")
+    failures = accuracy_failures(reading)
+    if failures:
+        raise AssertionError("accuracy: " + "; ".join(failures))
+    return counts
 
 
 def corr_model_flows(torch, run) -> list:
@@ -968,11 +1091,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
               file=sys.stderr)
         return 2
-    if not (ROOT / "gfnet_tpu_torch" / "csrc").is_dir() or not (HEAD_NPZ.exists() and TINY_HEAD.exists()):
-        print(f"chip_smoke: run from a checkout of the repository ({ROOT} lacks gfnet_tpu_torch "
-              "or the trained heads)", file=sys.stderr)
+    if not (ROOT / "gfnet_tpu_torch" / "csrc").is_dir() or not all(
+            f.exists() for f in (HEAD_NPZ, TINY_HEAD, JAX_ACCURACY, ORACLE)):
+        print(f"chip_smoke: run from a checkout of the repository ({ROOT} lacks gfnet_tpu_torch, "
+              "the trained heads or the accuracy readings)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    t_start = time.perf_counter()
     try:
         info = phase_device(torch)
         phase_build()
@@ -980,6 +1105,7 @@ def main() -> int:
         k2 = phase_k2(torch)
         phase_tiny(torch, np)
         flag, matcher = phase_flagship(torch, np)
+        acc_launches = phase_accuracy(torch, matcher)
         k3 = phase_k3(torch)
         phase_tiny_grads(torch, np)
         train = phase_trainer(torch, np, matcher)
@@ -987,7 +1113,8 @@ def main() -> int:
         traceback.print_exc()
         return 1
     # launches: per `estimate_homography` call for K1 and K2, per train step
-    # for K3, which only the training path runs
+    # for K3, which only the training path runs; and over the accuracy
+    # phase's 200 evaluated pairs
     summary = []
     for name, row, src, replaces, launches in (
         ("oneshot_attention", k1, "gfnet_tpu_torch/csrc/oneshot_attention.cu",
@@ -1005,7 +1132,9 @@ def main() -> int:
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": shape,
                         **({"flow": row["flow"], "ms_random_flow": row["ms_random_flow"]} if "flow" in row else {}),
-                        "launches_per_train_step": train["launches_per_step"][name]})
+                        "launches_per_train_step": train["launches_per_step"][name],
+                        "launches_accuracy": acc_launches[name]})
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                              "count": info["count"]}}), flush=True)

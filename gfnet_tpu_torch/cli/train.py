@@ -6,13 +6,15 @@ Counterpart of `gfnet_tpu/cli/train.py`, with its flags (ref `train.py:154-163`:
 names it and defaults to `cuda`. The loop follows the reference: k-step
 chunks of 25000 samples with a cosine-LR step and a checkpoint per chunk
 (`train.py:65-67,122-138`), a checkpoint on interrupt (`train.py:143-146`)
-and auto-resume from the newest checkpoint. Several devices and
-`--eval_after` are not ported yet.
+and auto-resume from the newest checkpoint, and with `--eval_after` the
+benchmark on the val set after training (ref `train.py:176-192`). Several
+devices are not ported yet.
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import sys
 import time
@@ -66,7 +68,7 @@ def main(argv=None, batches: Iterable[dict] | None = None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; cuda without a GPU is an error")
     parser.add_argument("--eval_after", action="store_true",
-                        help="not ported yet: the benchmark after training")
+                        help="run the benchmark on the val set after training")
     parser.add_argument("--eval_max_pairs", type=int, default=None)
     args, _ = parser.parse_known_args(argv)
 
@@ -78,27 +80,22 @@ def main(argv=None, batches: Iterable[dict] | None = None):
     from gfnet_tpu_torch.train.loss import RobustLoss
     from gfnet_tpu_torch.train.state import create_train_state
     from gfnet_tpu_torch.train.step import make_train_step
-    from gfnet_tpu_torch.utils.convert import load_head_npz, load_vit_npz
+    from gfnet_tpu_torch.utils.convert import load_head, load_vit
     from gfnet_tpu_torch.utils.logging import MetricLogger
 
-    if args.eval_after:
-        print("--eval_after is not ported yet (it waits for the evaluation modules); "
-              "training runs without the benchmark")
     if args.tiny:
         cfg = tiny_test_config()
     else:
         cfg = ModelConfig.from_json(args.conf_path) if args.conf_path else ModelConfig()
     vit_state = head_state = None
     if os.path.exists(args.dinov2_weights):
-        vit_state = load_vit_npz(args.dinov2_weights)
+        vit_state = load_vit(args.dinov2_weights)
         print(f"loaded DINOv2 weights from {args.dinov2_weights}")
     else:
         print(f"WARNING: no DINOv2 weights at {args.dinov2_weights}; "
               "training with a random frozen backbone")
     if args.ft and args.ft_ckpt:  # fine-tune bootstrap (ref `train.py:53-56`)
-        if not args.ft_ckpt.endswith(".npz"):
-            raise ValueError(f"--ft_ckpt takes an .npz head, got {args.ft_ckpt}")
-        head_state, kv_norm = load_head_npz(args.ft_ckpt)
+        head_state, kv_norm = load_head(args.ft_ckpt)
         cfg = cfg.with_kv_norm(kv_norm)
         print(f"loaded fine-tune init from {args.ft_ckpt}")
     dtype = torch.float32 if args.tiny or not cfg.amp else torch.bfloat16
@@ -141,6 +138,20 @@ def main(argv=None, batches: Iterable[dict] | None = None):
         if loader is not None:
             loader.close()
     print("training complete")
+
+    if args.eval_after:
+        from gfnet_tpu_torch.data.dataset import HomographyDataset
+        from gfnet_tpu_torch.eval.benchmark import HomographyBenchmark
+
+        val_name = {"glunet_448x448_occlusion": "mscoco"}.get(args.dataset, args.dataset)
+        try:
+            val_ds = HomographyDataset(dataset=val_name, mode="val", data_path=args.data_path,
+                                       input_resolution=cfg.initial_res)
+            results = HomographyBenchmark(val_ds).run(matcher, max_pairs=args.eval_max_pairs)
+            logger.log(results, step=state.step * global_batch)
+            print(json.dumps(results, indent=2))
+        except (KeyError, FileNotFoundError) as e:
+            print(f"eval_after skipped: val data unavailable ({e})")
     return state
 
 

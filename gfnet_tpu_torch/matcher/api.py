@@ -22,6 +22,7 @@ for the same generator state.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -33,6 +34,8 @@ from gfnet_tpu_torch.models.gfnet import GFNet
 from gfnet_tpu_torch.models.vit import VisionTransformer
 from gfnet_tpu_torch.ops.kde import kde
 from gfnet_tpu_torch.ops.resize import interpolate
+from gfnet_tpu_torch.utils.convert import flax_to_torch_vit
+from gfnet_tpu_torch.utils.jax_init import jax_vit_params
 
 Tensor = torch.Tensor
 
@@ -67,9 +70,14 @@ class GFNetMatcher:
     """Inference API around the frozen ViT + GFNet head.
 
     Weights: `vit_state` / `head_state` are state dicts (e.g. from
-    `utils.convert`); missing ones get a seeded random init. The ViT is
-    stored in `dtype`; the head keeps float32 parameters and computes in
-    `dtype`, as the JAX package does.
+    `utils.convert`). With no `vit_state` the ViT is the one the JAX
+    package's `GFNetMatcher(cfg, seed=seed)` draws, repeated in numpy by
+    `utils/jax_init.jax_vit_params` (its bits; normals within a few units in
+    the last place). With no `head_state` the head gets a seeded torch init
+    (`models/common.init_params`), which follows the JAX initializers'
+    distributions but not JAX's draw. The ViT is stored in `dtype`; the head
+    keeps float32 parameters and computes in `dtype`, as the JAX package
+    does.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda", dtype: torch.dtype = torch.bfloat16,
@@ -77,32 +85,35 @@ class GFNetMatcher:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
-        gen = torch.Generator().manual_seed(seed)
         vit = VisionTransformer(cfg.dino, dtype=dtype)
+        vit.load_state_dict(vit_state if vit_state is not None
+                            else flax_to_torch_vit(jax_vit_params(cfg.dino, seed)))
         head = GFNet(cfg, dtype=dtype)
-        init_params(vit, gen)
-        init_params(head, gen)
-        if vit_state is not None:
-            vit.load_state_dict(vit_state)
-        if head_state is not None:
+        if head_state is None:
+            init_params(head, torch.Generator().manual_seed(seed))
+        else:
             head.load_state_dict(head_state)
         self.vit = vit.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
         self.head = head.to(self.device).eval().requires_grad_(False)
 
     @classmethod
     def from_pretrained(cls, conf_path: str | None = None, ckpt_path: str | None = None,
-                        **kw) -> "GFNetMatcher":
-        """A matcher from a reference-format config JSON and an `.npz` head
-        (the flat `params/...`, `batch_stats/...` layout the JAX package
-        writes). A head trained with k/v standardization switches it on."""
-        from gfnet_tpu_torch.utils.convert import load_head_npz
+                        dinov2_weights: str | None = None, **kw) -> "GFNetMatcher":
+        """A matcher from a reference-format config JSON, a head checkpoint
+        (`.npz` in the JAX package's flat `params/...`, `batch_stats/...`
+        layout, or a reference torch `.pth`; `utils.convert.load_head`) and,
+        where the file exists, DINOv2 weights (`.npz` as
+        `tools/convert_dinov2.py` writes it, or the public `.pth`). A head
+        trained with k/v standardization switches it on."""
+        from gfnet_tpu_torch.utils.convert import load_head, load_vit
 
         cfg = ModelConfig.from_json(conf_path) if conf_path else ModelConfig()
-        head_state = None
         if ckpt_path:
-            head_state, kv_norm = load_head_npz(ckpt_path)
+            kw["head_state"], kv_norm = load_head(ckpt_path)
             cfg = cfg.with_kv_norm(kv_norm)
-        return cls(cfg, head_state=head_state, **kw)
+        if dinov2_weights and os.path.exists(dinov2_weights):
+            kw["vit_state"] = load_vit(dinov2_weights)
+        return cls(cfg, **kw)
 
     # --------------------------------------------------------------- forward
     def _vit_tokens(self, x: Tensor) -> Tensor:

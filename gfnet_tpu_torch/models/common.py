@@ -195,10 +195,11 @@ def gelu(x: Tensor) -> Tensor:
 
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random init following the JAX package's initializers: Dense
-    weights lecun-normal (truncated), conv weights U(±1/√fan_in), biases 0,
-    norms 1/0, BatchNorm running stats 0/1, cls token N(0, 1e-6), pos-embed
-    N(0, 0.02). LayerScale keeps its init value."""
+    """Seeded torch init of the head, following the distributions of the JAX
+    package's head initializers (not its draws): Dense weights lecun-normal
+    (truncated), conv weights U(±1/√fan_in) (`fpn.py:44`, `refiner.py:150,224`),
+    biases 0, norms 1/0, BatchNorm running stats 0/1. The ViT is not drawn
+    here: `utils/jax_init.jax_vit_params` draws the JAX package's."""
     for m in module.modules():
         if isinstance(m, Dense):
             std = 1.0 / math.sqrt(m.in_features) / 0.87962566103423978
@@ -216,9 +217,4 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
             if isinstance(m, BatchNorm):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
-    for name, p in module.named_parameters():
-        if name.endswith("cls_token"):
-            p.normal_(0.0, 1e-6, generator=generator)
-        elif name.endswith("pos_embed"):
-            p.normal_(0.0, 0.02, generator=generator)
     return module

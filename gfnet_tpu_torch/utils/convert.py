@@ -6,7 +6,10 @@
     (the reference GFNet checkpoint layout), composed of the per-module
     bridges `flax_to_torch_crossview`, `_encoder`, `_fpn_decoder` and `_refiner`;
   - `load_head_npz`: an `.npz` head with flat `params/...`, `batch_stats/...`
-    keys → (state_dict, kv_norm); `load_vit_npz`: converted DINOv2 weights.
+    keys → (state_dict, kv_norm); `load_vit_npz`: converted DINOv2 weights;
+  - `load_head_pth`, `load_vit_pth`: a reference `.pth` head and the public
+    DINOv2 `.pth`, whose names the port's modules share;
+  - `load_head`, `load_vit`: either format, by the file's extension.
 
 Trees are nested dicts of numpy arrays (or anything `np.asarray` takes).
 Layouts: flax Dense kernels are (in, out), torch's (out, in); conv kernels
@@ -17,6 +20,8 @@ LayerNorm `scale` is `weight`; BatchNorm `mean`/`var` are `running_mean`/
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -197,3 +202,46 @@ def load_head_npz(path: str) -> tuple[dict, bool]:
     with np.load(path) as raw:
         kv_norm = bool(raw[flag]) if flag in raw.files else False
         return flax_to_torch_head(_nest(raw, skip=(flag,))), kv_norm
+
+
+def _torch_state(path: str) -> dict:
+    """A `.pth` state dict read as tensors only (`weights_only=True`): the
+    file's own dict, or its "model" entry as the reference trainer saves it
+    (`checkpointing/checkpoint.py:28`)."""
+    states = torch.load(path, map_location="cpu", weights_only=True)
+    sd = states.get("model", states)
+    return {k: v.float() if v.is_floating_point() else v for k, v in sd.items()}
+
+
+def load_vit_pth(path: str) -> dict:
+    """The public DINOv2 `.pth` → state dict of the port's `VisionTransformer`
+    (same names; the masked-training `mask_token` is not part of the model)."""
+    return {k: v for k, v in _torch_state(path).items() if k != "mask_token"}
+
+
+def load_head_pth(path: str) -> tuple[dict, bool]:
+    """A reference GFNet `.pth` → (port state dict, kv_norm=False): the
+    reference's module names are the port's; BatchNorm's
+    `num_batches_tracked` counters, which the port's BatchNorm lacks, are
+    dropped."""
+    sd = _torch_state(path)
+    return {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}, False
+
+
+def load_head(path: str) -> tuple[dict, bool]:
+    """A head checkpoint, `.npz` or `.pth` → (port state dict, kv_norm). An
+    orbax directory raises: reading it needs JAX's orbax."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is an orbax checkpoint directory, which only the JAX package reads. "
+            "Turn it into an .npz with the JAX package first: restore it with "
+            "gfnet_tpu.utils.convert.load_head_checkpoint(path, GFNetMatcher(cfg).head_vars) "
+            "and np.savez the leaves under their '/'-joined paths (params/..., batch_stats/...)")
+    if path.endswith(".npz"):
+        return load_head_npz(path)
+    return load_head_pth(path)
+
+
+def load_vit(path: str) -> dict:
+    """DINOv2 weights, converted `.npz` or public `.pth` → ViT state dict."""
+    return load_vit_npz(path) if path.endswith(".npz") else load_vit_pth(path)

@@ -18,12 +18,18 @@ gate's tolerance:
     a tile's right edge (an off-by-one in the staged box), on the homography
     flow at two shapes of phase 4 (bf16) and of phase 7 (float32);
   - the tiny config's train step on CUDA against the CPU (phase 8), sound and
-    with each of the two K3 faults: the loss and the gradient gate.
+    with each of the two K3 faults: the loss and the gradient gate;
+  - the accuracy gate (the accuracy phase) on the flagship matcher: sound
+    with four sampling seeds, with K2's centre tap zeroed, with K1's scale off
+    by 1%, and with the backbone `GFNetMatcher(seed=0)` drew before it drew
+    the JAX package's (torch-seeded, its patch embedding U(±1/√588)).
 
-Exits 1 if a planted fault stays inside its gate, or the sound train step does not. Needs one GPU; run from the
-repository root:
+Exits 1 if a planted kernel fault stays inside its gate, or a sound run
+does not pass its gate; the accuracy gate's faults are reported, caught or
+not. Needs one GPU; run from the repository root (`accuracy` runs the
+accuracy gate's readings alone):
 
-    python3 scripts/plant_faults_torch.py
+    python3 scripts/plant_faults_torch.py [accuracy]
 """
 
 from __future__ import annotations
@@ -206,16 +212,81 @@ def tiny_faults(caught: list) -> None:
         report(f"tiny match with {fault.__name__}", "tiny_cuda_vs_cpu", err, chip_smoke.E2E_ATOL, caught)
 
 
-def main() -> int:
+@torch.no_grad()
+def backbone_before_jax_draw(cfg, seed: int = 0) -> dict:
+    """The ViT state `GFNetMatcher(cfg, seed=seed)` drew before it drew the
+    JAX package's: a torch generator seeded with `seed`, Dense weights
+    truncated normal, every conv (the patch embedding too) U(±1/√fan_in),
+    then the cls token N(0, 1e-6) and the pos-embed N(0, 0.02)."""
+    from gfnet_tpu_torch.models.common import Conv, Dense
+    from gfnet_tpu_torch.models.vit import VisionTransformer
+
+    gen = torch.Generator().manual_seed(seed)
+    vit = VisionTransformer(cfg.dino, dtype=torch.float32)
+    for m in vit.modules():
+        if isinstance(m, Dense):
+            std = 1.0 / m.in_features**0.5 / 0.87962566103423978
+            torch.nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=gen)
+            m.bias.zero_()
+        elif isinstance(m, Conv):
+            bound = 1.0 / m.weight[0].numel() ** 0.5
+            m.weight.uniform_(-bound, bound, generator=gen)
+            m.bias.zero_()
+    vit.cls_token.normal_(0.0, 1e-6, generator=gen)
+    vit.pos_embed.normal_(0.0, 0.02, generator=gen)
+    return vit.state_dict()
+
+
+def accuracy_report(what: str, reading: dict, sound: bool, caught: list) -> None:
+    failures = chip_smoke.accuracy_failures(reading)
+    summary = {name: {k: r[k] for k in ("mace_minus_oracle", "mace_jax_pairs_port", "mace_jax_pairs_jax",
+                                        "pair_abs_diff_median", "pair_abs_diff_max", "ace_port_jax")}
+               | {"mace": r["results"][f"mace_{name}"]}
+               for name, r in reading.items() if isinstance(r, dict)}
+    print(json.dumps({"fault": what, "gate": "accuracy",
+                      "pair_abs_diff_registered_mean": reading["pair_abs_diff_registered_mean"],
+                      "registered_pairs": reading["registered_pairs"],
+                      "pair_tol": chip_smoke.ACC_PAIR_TOL, "mace_tol": chip_smoke.ACC_MACE_TOL,
+                      "sets": summary, "failures": failures, "caught": bool(failures)}), flush=True)
+    if sound:
+        caught.append(not failures)
+
+
+def accuracy_faults(caught: list) -> None:
+    from gfnet_tpu_torch.matcher import GFNetMatcher
+
+    m = GFNetMatcher.from_pretrained(ckpt_path=str(chip_smoke.HEAD_NPZ), device="cuda",
+                                     dtype=torch.bfloat16, seed=0)
+    sets, _ = chip_smoke.accuracy_pairs(torch)
+    for seed in (0, 1, 2, 3):
+        accuracy_report(f"no fault, sampling seed {seed}", chip_smoke.accuracy_reading(torch, m, sets, seed),
+                        True, caught)
+    for name, fault in (("local_corr", k2_centre_zeroed), ("oneshot_attention", k1_scale_off)):
+        fault.launches = 0  # the real launcher counts on the name it is called by
+        setattr(kernels, name, fault)
+        try:
+            reading = chip_smoke.accuracy_reading(torch, m, sets)
+        finally:
+            setattr(kernels, name, REAL_K1 if name == "oneshot_attention" else REAL_K2)
+        accuracy_report(f"accuracy with {fault.__name__}", reading, False, caught)
+    m.vit.load_state_dict(backbone_before_jax_draw(m.cfg, 0))
+    accuracy_report("accuracy with the backbone drawn before the JAX draw (torch-seeded)",
+                    chip_smoke.accuracy_reading(torch, m, sets), False, caught)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("plant_faults_torch: needs a GPU", file=sys.stderr)
         return 2
     chip_smoke.phase_device(torch)
     caught: list = []
-    kernel_faults(caught)
-    tiny_faults(caught)
-    k3_faults(caught)
-    tiny_train_faults(caught)
+    if argv != ["accuracy"]:
+        kernel_faults(caught)
+        tiny_faults(caught)
+        k3_faults(caught)
+        tiny_train_faults(caught)
+    accuracy_faults(caught)
     return 0 if all(caught) else 1
 
 

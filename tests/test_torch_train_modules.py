@@ -312,11 +312,13 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
 
 
 def test_cli_says_that_eval_after_is_not_ported(tmp_path, capsys):
+    """`--eval_after` is ported; where the dataset has no val set it says so
+    and skips the benchmark, as the JAX package's trainer does."""
     args = ["--tiny", "--device", "cpu", "--dataset", "synth", "--workspace", str(tmp_path),
             "--gpu_batch_size", "2", "--total_pairs", "0", "--eval_after",
             "--dinov2_weights", str(tmp_path / "absent.npz")]
     cli_train.main(args, batches=iter(()))
-    assert "--eval_after is not ported yet" in capsys.readouterr().out
+    assert "eval_after skipped: val data unavailable" in capsys.readouterr().out
 
 
 def test_cli_asking_for_cuda_without_a_gpu_raises(tmp_path):
