@@ -2,13 +2,20 @@
 
 Counterpart of `gfnet_tpu/cli/train.py`, with its flags (ref `train.py:154-163`:
 --conf_path, --dataset, --gpu_batch_size, --ft, --ft_ckpt, plus --data_path,
---workspace, --total_pairs, --ckpt_every, ...) on one device; `--device`
-names it and defaults to `cuda`. The loop follows the reference: k-step
-chunks of 25000 samples with a cosine-LR step and a checkpoint per chunk
-(`train.py:65-67,122-138`), a checkpoint on interrupt (`train.py:143-146`)
-and auto-resume from the newest checkpoint, and with `--eval_after` the
-benchmark on the val set after training (ref `train.py:176-192`). Several
-devices are not ported yet.
+--workspace, --total_pairs, --ckpt_every, --multihost, ...); `--device`
+names the device kind and defaults to `cuda`. The loop follows the
+reference: k-step chunks of 25000 samples with a cosine-LR step and a
+checkpoint per chunk (`train.py:65-67,122-138`), a checkpoint on interrupt
+(`train.py:143-146`) and auto-resume from the newest checkpoint, and with
+`--eval_after` the benchmark on the val set after training (ref
+`train.py:176-192`).
+
+`--multihost` runs one process a device (`parallel.mesh.init_distributed`:
+torchrun's environment or the JAX package's `GFNET_COORDINATOR`,
+`GFNET_NUM_PROCESSES`, `GFNET_PROCESS_ID`); NCCL on cuda, gloo on cpu.
+`--gpu_batch_size` is then each rank's batch, read from its own share of the
+dataset's files; rank 0 writes the checkpoints and the metrics log, and
+every rank restores.
 """
 
 from __future__ import annotations
@@ -60,6 +67,9 @@ def main(argv=None, batches: Iterable[dict] | None = None):
     parser.add_argument("--total_pairs", type=int, default=2_000_000)
     parser.add_argument("--ckpt_every", type=int, default=25_000)
     parser.add_argument("--num_workers", type=int, default=8)
+    parser.add_argument("--multihost", action="store_true",
+                        help="one process a device over torch.distributed (torchrun's or "
+                             "GFNET_COORDINATOR/GFNET_NUM_PROCESSES/GFNET_PROCESS_ID's environment)")
     parser.add_argument("--dinov2_weights", type=str,
                         default=os.environ.get("DINOV2_NPZ", "weights/dinov2_vitl14.npz"))
     parser.add_argument("--log_every", type=int, default=50)
@@ -76,6 +86,7 @@ def main(argv=None, batches: Iterable[dict] | None = None):
 
     from gfnet_tpu_torch.config import ModelConfig, TrainConfig, tiny_test_config
     from gfnet_tpu_torch.matcher.api import GFNetMatcher
+    from gfnet_tpu_torch.parallel.mesh import init_distributed
     from gfnet_tpu_torch.train.checkpoint import Checkpointer
     from gfnet_tpu_torch.train.loss import RobustLoss
     from gfnet_tpu_torch.train.state import create_train_state
@@ -83,6 +94,12 @@ def main(argv=None, batches: Iterable[dict] | None = None):
     from gfnet_tpu_torch.utils.convert import load_head, load_vit
     from gfnet_tpu_torch.utils.logging import MetricLogger
 
+    mesh, device = None, args.device
+    started_group = args.multihost and not torch.distributed.is_initialized()
+    if args.multihost:
+        mesh = init_distributed(args.device)
+        device = mesh.device
+    proc, nproc = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
     if args.tiny:
         cfg = tiny_test_config()
     else:
@@ -99,10 +116,10 @@ def main(argv=None, batches: Iterable[dict] | None = None):
         cfg = cfg.with_kv_norm(kv_norm)
         print(f"loaded fine-tune init from {args.ft_ckpt}")
     dtype = torch.float32 if args.tiny or not cfg.amp else torch.bfloat16
-    matcher = GFNetMatcher(cfg, device=args.device, dtype=dtype, vit_state=vit_state,
+    matcher = GFNetMatcher(cfg, device=device, dtype=dtype, vit_state=vit_state,
                            head_state=head_state)
 
-    global_batch = args.batch_size
+    global_batch = args.batch_size * nproc
     tcfg = TrainConfig(total_pairs=args.total_pairs, ckpt_every_pairs=args.ckpt_every,
                        per_host_batch_size=args.batch_size)
     loss = RobustLoss(ce_weight=tcfg.ce_weight, alpha=tcfg.alpha, c=tcfg.c,
@@ -110,11 +127,11 @@ def main(argv=None, batches: Iterable[dict] | None = None):
                       local_largest_scale=tcfg.local_largest_scale,
                       local_dist=tcfg.local_dist, im_size=cfg.initial_res[0])
     state = create_train_state(matcher.head, tcfg, global_batch)
-    ckpt = Checkpointer(args.workspace, args.dataset)
+    ckpt = Checkpointer(args.workspace, args.dataset, mesh=mesh)
     if ckpt.restore(state) is not None:
         print(f"auto-resumed from step {state.step}")
 
-    step_fn = make_train_step(matcher, loss)
+    step_fn = make_train_step(matcher, loss, mesh)
     k = max(args.ckpt_every // global_batch, 1)
     total_steps = args.total_pairs // global_batch
     loader = None
@@ -122,10 +139,11 @@ def main(argv=None, batches: Iterable[dict] | None = None):
         from gfnet_tpu_torch.data.dataset import BatchLoader, HomographyDataset
 
         dataset = HomographyDataset(dataset=args.dataset, mode="train", data_path=args.data_path,
-                                    input_resolution=cfg.initial_res)
-        loader = BatchLoader(dataset, args.batch_size, num_workers=args.num_workers, seed=0)
+                                    input_resolution=cfg.initial_res, process_index=proc,
+                                    process_count=nproc)
+        loader = BatchLoader(dataset, args.batch_size, num_workers=args.num_workers, seed=proc)
         batches = loader.batches(max(total_steps - state.step, 0))
-    logger = MetricLogger(jsonl_path=os.path.join(args.workspace, "metrics.jsonl"))
+    logger = MetricLogger(enabled=proc == 0, jsonl_path=os.path.join(args.workspace, "metrics.jsonl"))
     print(f"training {total_steps} steps (global batch {global_batch}), k={k}")
     try:
         train_loop(state, step_fn, batches, ckpt, total_steps, k, global_batch, logger,
@@ -139,7 +157,7 @@ def main(argv=None, batches: Iterable[dict] | None = None):
             loader.close()
     print("training complete")
 
-    if args.eval_after:
+    if args.eval_after and proc == 0:
         from gfnet_tpu_torch.data.dataset import HomographyDataset
         from gfnet_tpu_torch.eval.benchmark import HomographyBenchmark
 
@@ -152,6 +170,9 @@ def main(argv=None, batches: Iterable[dict] | None = None):
             print(json.dumps(results, indent=2))
         except (KeyError, FileNotFoundError) as e:
             print(f"eval_after skipped: val data unavailable ({e})")
+    if started_group:
+        mesh.barrier()
+        torch.distributed.destroy_process_group()
     return state
 
 

@@ -7,9 +7,9 @@ best hypothesis' inliers, refined by a few Cauchy IRLS steps. Every function
 takes leading batch dimensions, so B pairs solve as one (B, K, 8, 8) solve
 where the JAX package vmaps.
 
-`ransac_homography` draws the (K, 4) minimal-sample indices from a
-`torch.Generator`; `ransac_homography_from_indices` takes them, so a test can
-feed both this port and the JAX package the same hypotheses.
+`ransac_homography` draws the (K, 4) minimal-sample indices as the JAX
+package's does, `randint(key, (K, 4), 0, N)` (`utils/jax_random.py`);
+`ransac_homography_from_indices` takes them, so a test can feed any.
 """
 
 from __future__ import annotations
@@ -111,13 +111,16 @@ def ransac_homography_from_indices(src: Tensor, dst: Tensor, weights: Tensor | N
 
 
 def ransac_homography(src: Tensor, dst: Tensor, weights: Tensor | None = None,
-                      generator: torch.Generator | None = None, num_hypotheses: int = 512,
-                      threshold: float = 3.0, irls_iters: int = 4) -> tuple[Tensor, Tensor]:
+                      key=None, num_hypotheses: int = 512, threshold: float = 3.0,
+                      irls_iters: int = 4) -> tuple[Tensor, Tensor]:
     """Vectorized RANSAC + IRLS refit on (N, 2) correspondences. Minimal
-    samples are drawn uniformly with replacement: a duplicate pick gives a
-    degenerate hypothesis that simply scores no inliers."""
-    idx = torch.randint(0, src.shape[0], (num_hypotheses, 4), generator=generator,
-                        device=src.device)
+    samples are drawn uniformly with replacement under the JAX key `key`
+    ((2,) uint32; None is `PRNGKey(0)`): a duplicate pick gives a degenerate
+    hypothesis that simply scores no inliers."""
+    from gfnet_tpu_torch.utils import jax_init, jax_random
+
+    key = jax_init.prng_key(0) if key is None else key
+    idx = jax_random.randint(key, (num_hypotheses, 4), 0, src.shape[0], device=src.device)
     return ransac_homography_from_indices(src, dst, weights, idx, threshold, irls_iters)
 
 

@@ -9,13 +9,16 @@ end to end:
   - a benchmark over any indexable of `{im_A, im_B, H_s2t}` pairs with a
     `.dataset` name (a val `data/dataset.HomographyDataset`, or
     `eval/synthetic.eval_pairs` made on the card) reporting auc@{3,5,10,20} +
-    mean ACE + runtime (ref `test.py:57-75`), under the JAX package's keys.
+    mean ACE + runtime (ref `test.py:57-75`).
 
 Images are float in [0, 1], or uint8, which is divided by 255 as the val
-dataset reads a PNG. Randomness: one `torch.Generator` seeded by `seed` on
-the matcher's device, advanced pair by pair (serial) or chunk by chunk
-(batched). The JAX package splits a key per pair instead, so the draws,
-and with them each pair's sampled matches, differ from JAX's.
+dataset reads a PNG. Randomness takes the JAX package's key chains from
+`PRNGKey(seed)` (`gfnet_tpu/eval/benchmark.py:88-120`), so each pair draws
+what it draws there: serial, `key, k = split(key)` a pair and the pair
+drawing from `split(k, 1)[0]`; batched, the same split a chunk and pair j
+of the chunk drawing from `split(k, B)[j]`. `run(..., serial_keys=True)`
+batches pairs for speed but hands each pair its serial key, so a batched
+run reads what the serial protocol reads.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from gfnet_tpu_torch.utils import jax_init
 
 
 def auc(errors: Sequence[float], thresholds: Sequence[float]) -> list[float]:
@@ -69,15 +74,14 @@ def _finite_or_degenerate(H: np.ndarray) -> np.ndarray:
     return H if np.all(np.isfinite(H)) else np.diag([0.0, 0.0, 1.0])
 
 
-def evaluate_pair(matcher, im_src, im_tgt, H_gt: np.ndarray,
-                  generator: torch.Generator | None = None,
+def evaluate_pair(matcher, im_src, im_tgt, H_gt: np.ndarray, key=None,
                   num_matches: int = 5000) -> tuple[float, float]:
-    """One pair → (ACE, runtime_seconds). Timing covers match+sample+solve
-    like the reference (`estimation.py:56,78`)."""
+    """One pair → (ACE, runtime_seconds), drawing under the JAX key `key`.
+    Timing covers match+sample+solve like the reference (`estimation.py:56,78`)."""
     a, b = unit_image(im_src), unit_image(im_tgt)
     h, w = a.shape[-3:-1]
     start = time.perf_counter()
-    H_pred = matcher.estimate_homography(a, b, num_matches=num_matches, generator=generator)
+    H_pred = matcher.estimate_homography(a, b, num_matches=num_matches, key=key)
     H_pred = homography_to_host(H_pred)
     runtime = time.perf_counter() - start
     return corner_error_np(_finite_or_degenerate(H_pred), np.asarray(H_gt, np.float64), w, h), runtime
@@ -99,25 +103,26 @@ class HomographyBenchmark:
         return results
 
     def run(self, matcher, max_pairs: int | None = None, seed: int = 0, verbose=False,
-            batch_size: int | None = None) -> dict:
+            batch_size: int | None = None, serial_keys: bool = False) -> dict:
         """batch_size=None: the reference's strictly serial per-pair protocol
         (its runtime number is per-pair latency, `estimation.py:56,78`).
         batch_size=B: pairs go through `estimate_homography_batched` B at a
         time, the ragged tail repeat-padded, with `runtime_*` reporting
-        amortized wall-clock per pair. Each pair's ACE stays in
+        amortized wall-clock per pair; with `serial_keys` each pair draws
+        under the serial protocol's key. Each pair's ACE stays in
         `self.errors`, in order."""
         n = len(self.dataset)
         if max_pairs:
             n = min(n, max_pairs)
-        generator = torch.Generator(matcher.device).manual_seed(seed)
         self.errors = errors = []
         if batch_size:
-            return self._run_batched(matcher, n, batch_size, generator, verbose, errors)
+            return self._run_batched(matcher, n, batch_size, seed, serial_keys, verbose, errors)
         runtimes = []
+        key = jax_init.prng_key(seed)
         for i in range(n):
             sample = self.dataset[i]
-            ace, rt = evaluate_pair(matcher, sample["im_A"], sample["im_B"], sample["H_s2t"],
-                                    generator=generator)
+            key, k = jax_init.split(key)
+            ace, rt = evaluate_pair(matcher, sample["im_A"], sample["im_B"], sample["H_s2t"], key=k)
             errors.append(ace)
             runtimes.append(rt)
             if verbose and (i + 1) % 50 == 0:
@@ -127,9 +132,10 @@ class HomographyBenchmark:
         results[f"runtime_{self.dataset.dataset}"] = float(np.median(runtimes))
         return results
 
-    def _run_batched(self, matcher, n: int, bsz: int, generator: torch.Generator, verbose: bool,
+    def _run_batched(self, matcher, n: int, bsz: int, seed: int, serial_keys: bool, verbose: bool,
                      errors: list) -> dict:
         batch_times = []
+        key = jax_init.prng_key(seed)
         for start in range(0, n, bsz):
             idx = list(range(start, min(start + bsz, n)))
             samples = [self.dataset[i] for i in idx]
@@ -137,8 +143,18 @@ class HomographyBenchmark:
             samples += [samples[-1]] * (bsz - len(idx))
             im_a = torch.stack([unit_image(s["im_A"]) for s in samples])
             im_b = torch.stack([unit_image(s["im_B"]) for s in samples])
+            if serial_keys:  # pair i's key of the serial chain, split(k, 1)[0]
+                pair_keys = []
+                for _ in idx:
+                    key, k = jax_init.split(key)
+                    pair_keys.append(jax_init.split(k, 1)[0])
+                pair_keys += [pair_keys[-1]] * (bsz - len(idx))
+                keys = {"pair_keys": np.stack(pair_keys)}
+            else:
+                key, k = jax_init.split(key)
+                keys = {"key": k}
             t0 = time.perf_counter()
-            Hs = matcher.estimate_homography_batched(im_a, im_b, generator=generator)
+            Hs = matcher.estimate_homography_batched(im_a, im_b, **keys)
             Hs = homography_to_host(Hs)
             batch_times.append(time.perf_counter() - t0)
             h, w = im_a.shape[1:3]

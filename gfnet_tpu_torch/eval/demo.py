@@ -13,11 +13,11 @@ import json
 import time
 
 import numpy as np
-import torch
 
 from gfnet_tpu_torch.core.geometry import denormalize_corner_aligned
 from gfnet_tpu_torch.core.homography import ransac_homography
 from gfnet_tpu_torch.eval.benchmark import homography_to_host, corner_error_np, unit_image
+from gfnet_tpu_torch.utils import jax_init
 
 
 def _load_image(img) -> np.ndarray:
@@ -43,7 +43,8 @@ def demo_estimation(
     seed: int = 0,
 ):
     """Returns (corner_error_or_None, runtime_seconds, H_pred). The sampling
-    and RANSAC draws come from one generator seeded by `seed`."""
+    and RANSAC draws take the keys of `split(PRNGKey(seed))`, as the JAX
+    package's demo does."""
     im1 = _load_image(img1)
     im2 = _load_image(img2)
     h1, w1 = im1.shape[:2]
@@ -57,13 +58,13 @@ def demo_estimation(
         else:
             H_gt = np.asarray(H_s2t_path, np.float64)
 
-    generator = torch.Generator(matcher.device).manual_seed(seed)
+    k1, k2 = jax_init.split(jax_init.prng_key(seed))
     start = time.perf_counter()
     warp, certainty = matcher.match(im1, im2)
-    matches, _ = matcher.sample(warp, certainty, num_matches, generator)
+    matches, _ = matcher.sample(warp, certainty, num_matches, key=k1)
     pos_a = denormalize_corner_aligned(matches[:, :2], h1, w1)
     pos_b = denormalize_corner_aligned(matches[:, 2:], h2, w2)
-    H_pred, _ = ransac_homography(pos_a, pos_b, generator=generator)
+    H_pred, _ = ransac_homography(pos_a, pos_b, key=k2)
     H_pred = homography_to_host(H_pred)
     runtime = time.perf_counter() - start
 

@@ -16,9 +16,11 @@ in float64 on the host and rounded to float32 where the JAX package's are;
 the images come out as uint8, as `tools/make_synth_valdir.py` writes them,
 and differ from the `cv2` ones by interpolation rounding (a few levels).
 
-`train_batch` keeps the JAX package's `cv2` arithmetic bit for bit
-(`_synth_pair_cv2`, `data/homography_synth.py`); it imports `cv2` when
-called, and nothing the GPU smoke script runs calls it.
+`train_batch` makes the training stream. On the host (no `device`) it
+keeps the JAX package's `cv2` arithmetic bit for bit (`_synth_pair_cv2`,
+`data/homography_synth.py`) and imports `cv2` when called; given a
+`device`, it makes the same pairs from the same numpy draws with the tensor
+ops of `eval_pairs` (`synth_pair`), as the card's learning run does.
 """
 
 from __future__ import annotations
@@ -224,12 +226,16 @@ def eval_pairs(n: int, res: int, deformation_ratio: float = 0.15, seed: int = 12
 
 def benchmark_mace(matcher, pairs: list[dict], num_matches: int = 2000, seed=0):
     """MACE over the synthetic set via the full match→sample→solve pipeline,
-    one pair at a time with one generator seeded by `seed`."""
+    one pair at a time under the JAX package's key chain: `key =
+    PRNGKey(seed)`, then `key, k = split(key)` a pair."""
     from gfnet_tpu_torch.eval.benchmark import evaluate_pair
+    from gfnet_tpu_torch.utils import jax_init
 
-    generator = torch.Generator(matcher.device).manual_seed(seed)
-    errors = [evaluate_pair(matcher, s["im_A"], s["im_B"], s["H_s2t"], generator=generator,
-                            num_matches=num_matches)[0] for s in pairs]
+    key, errors = jax_init.prng_key(seed), []
+    for s in pairs:
+        key, k = jax_init.split(key)
+        errors.append(evaluate_pair(matcher, s["im_A"], s["im_B"], s["H_s2t"], key=k,
+                                    num_matches=num_matches)[0])
     return float(np.mean(errors)), errors
 
 
@@ -279,7 +285,7 @@ def _synth_pair_cv2(rng: np.random.Generator, res: int, deformation_ratio: float
 
 def train_batch(
     rng: np.random.Generator, batch: int, res: int, deformation_ratio: float = 0.15,
-    cross_modal_frac: float = 0.0, uint8: bool = False,
+    cross_modal_frac: float = 0.0, uint8: bool = False, device=None,
 ) -> dict:
     """Training batch (what train/step.py consumes).
 
@@ -288,20 +294,29 @@ def train_batch(
     uint8=True ships raw 8-bit images (device-side normalization in
     train/step.py): 4x less host->device traffic, and quantization to 8 bits
     matches real datasets' information content (the reference loads 8-bit
-    PILs, `homography_dataset_large_size.py:149-190`)."""
+    PILs, `homography_dataset_large_size.py:149-190`).
+    device=None: numpy arrays from the `cv2` pairs; a device: tensors there
+    from `synth_pair`, the same draws in the same order, the images within
+    interpolation rounding of the `cv2` ones (H_s2t on the device too)."""
     ims, imt, hs = [], [], []
     for _ in range(batch):
         cm = rng.uniform() < cross_modal_frac
-        a, b, H = _synth_pair_cv2(rng, res, deformation_ratio, cm)
-        if uint8:
-            ims.append((a * 255.0 + 0.5).astype(np.uint8))
-            imt.append((b * 255.0 + 0.5).astype(np.uint8))
+        if device is None:
+            a, b, H = _synth_pair_cv2(rng, res, deformation_ratio, cm)
         else:
-            ims.append((a - IMAGENET_MEAN) / IMAGENET_STD)
-            imt.append((b - IMAGENET_MEAN) / IMAGENET_STD)
+            a, b, H = synth_pair(rng, res, deformation_ratio, cross_modal=cm, device=device)
+        for out, im in ((ims, a), (imt, b)):
+            if uint8:
+                out.append((im * 255.0 + 0.5).astype(np.uint8) if device is None
+                           else (im * 255.0 + 0.5).to(torch.uint8))
+            else:
+                mean, std = ((IMAGENET_MEAN, IMAGENET_STD) if device is None else
+                             (torch.from_numpy(IMAGENET_MEAN).to(im.device),
+                              torch.from_numpy(IMAGENET_STD).to(im.device)))
+                out.append((im - mean) / std)
         hs.append(H)
-    return {
-        "im_A": np.stack(ims),
-        "im_B": np.stack(imt),
-        "H_s2t": np.stack(hs).astype(np.float32),
-    }
+    if device is None:
+        return {"im_A": np.stack(ims), "im_B": np.stack(imt),
+                "H_s2t": np.stack(hs).astype(np.float32)}
+    return {"im_A": torch.stack(ims), "im_B": torch.stack(imt),
+            "H_s2t": torch.from_numpy(np.stack(hs).astype(np.float32)).to(ims[0].device)}

@@ -5,18 +5,26 @@ Counterpart of `gfnet_tpu/matcher/api.py:37-496` (ref `model/network.py:285-414`
   - pass 1 at `initial_res`: resize + normalize, the frozen ViT in the
     model dtype, the symmetric head forward, certainty-attenuation prep;
   - pass 2 at `upsample_res`: re-entry at scale "8", then the warp stitch;
-  - threshold-balanced sampling: Gumbel top-k (exact `torch.topk`) + KDE;
+  - threshold-balanced sampling: Gumbel top-k (exact, in JAX's order) + KDE;
   - batched RANSAC + IRLS on the device.
 Sampling and solving take all pairs of a batch at once, as the JAX
 package's vmapped `_sample_solve_batched_jit` does.
 
-Randomness comes from an explicit `torch.Generator`. The public `sample`
-and `estimate_homography*` draw the Gumbel uniforms and RANSAC indices;
-`_sample_core`, `_solve` and `_sample_solve` take them, so tests can feed
-the JAX draws.
-Per pair the draws come in one order (uniforms, then RANSAC indices), so
-`estimate_homography` equals the first pair of `estimate_homography_batched`
-for the same generator state.
+Randomness takes the JAX package's keys: a key is a (2,) uint32 array
+(`utils.jax_init.prng_key(seed)`, or a JAX key as numpy), None meaning
+`PRNGKey(0)`. A batch of B pairs splits its key into B pair keys, and each
+pair draws from its own as JAX's batched path does: `k1, k2 = split(pair
+key)`, the two Gumbel draws from `split(k1)`, the RANSAC indices from
+`randint(k2, ...)`. The draws run on the matcher's device
+(`utils/jax_random.py`). `_sample_core`, `_solve` and `_sample_solve` take
+the draws as tensors, so tests can feed any.
+
+With `shard_for_mesh(mesh)` the matcher serves over a process group
+(`parallel/`): every rank runs the same call on the whole request. A batch
+of at least as many pairs as ranks is padded by repeating its last pair and
+split by rows; each rank matches, samples and solves its rows with their
+pair keys, and the homographies are gathered. A smaller batch runs on every
+rank, with only the coarse correlation split over the ranks.
 """
 
 from __future__ import annotations
@@ -24,24 +32,46 @@ from __future__ import annotations
 import math
 import os
 
+import numpy as np
 import torch
 
 from gfnet_tpu_torch.config import ModelConfig
 from gfnet_tpu_torch.core.geometry import denormalize_corner_aligned, normalized_grid
 from gfnet_tpu_torch.core.homography import ransac_homography_from_indices
-from gfnet_tpu_torch.models.common import init_params
 from gfnet_tpu_torch.models.gfnet import GFNet
 from gfnet_tpu_torch.models.vit import VisionTransformer
 from gfnet_tpu_torch.ops.kde import kde
 from gfnet_tpu_torch.ops.resize import interpolate
-from gfnet_tpu_torch.utils.convert import flax_to_torch_vit
-from gfnet_tpu_torch.utils.jax_init import jax_vit_params
+from gfnet_tpu_torch.utils import jax_init, jax_random
+from gfnet_tpu_torch.utils.convert import jax_head_state, jax_vit_state
 
 Tensor = torch.Tensor
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 NUM_HYPOTHESES = 512
+GUMBEL_MIN = 1e-20  # the uniforms' minval in the JAX package's Gumbel draws
+
+
+def as_key(key) -> "np.ndarray":
+    """A JAX key as a (2,) uint32 numpy array; None is `PRNGKey(0)`."""
+    return jax_init.prng_key(0) if key is None else np.asarray(key, np.uint32).reshape(2)
+
+
+def topk_indices(x: Tensor, k: int) -> Tensor:
+    """The indices of the k largest entries of float32 `x` along the last
+    axis, largest first and ties to the lower index, as `jax.lax.top_k`
+    returns them (and the CPU's `approx_max_k` for k < N): the sampler's
+    later draws address positions in this order. `torch.topk` does not
+    promise how it breaks ties, so it ranks one int64 key an entry: the
+    float's bits made monotonic (negative values' magnitude bits flipped) in
+    the high word, N - 1 - index in the low word. The keys are distinct, and
+    their order is JAX's."""
+    bits = x.to(torch.float32).view(torch.int32).to(torch.int64)
+    monotonic = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    n = x.shape[-1]
+    rank = torch.arange(n - 1, -1, -1, device=x.device)
+    return torch.topk(monotonic * (1 << 32) + rank, k, dim=-1).indices
 
 
 def imagenet_normalize(x: Tensor) -> Tensor:
@@ -70,13 +100,11 @@ class GFNetMatcher:
     """Inference API around the frozen ViT + GFNet head.
 
     Weights: `vit_state` / `head_state` are state dicts (e.g. from
-    `utils.convert`). With no `vit_state` the ViT is the one the JAX
-    package's `GFNetMatcher(cfg, seed=seed)` draws, repeated in numpy by
-    `utils/jax_init.jax_vit_params` (its bits; normals within a few units in
-    the last place). With no `head_state` the head gets a seeded torch init
-    (`models/common.init_params`), which follows the JAX initializers'
-    distributions but not JAX's draw. The ViT is stored in `dtype`; the head
-    keeps float32 parameters and computes in `dtype`, as the JAX package
+    `utils.convert`). Either one left out is the one the JAX package's
+    `GFNetMatcher(cfg, seed=seed)` draws, repeated in numpy by
+    `utils/jax_init.jax_vit_params` / `jax_head_params` (its bits; normals
+    within a few units in the last place). The ViT is stored in `dtype`; the
+    head keeps float32 parameters and computes in `dtype`, as the JAX package
     does.
     """
 
@@ -86,13 +114,10 @@ class GFNetMatcher:
         self.device = resolve_device(device)
         self.dtype = dtype
         vit = VisionTransformer(cfg.dino, dtype=dtype)
-        vit.load_state_dict(vit_state if vit_state is not None
-                            else flax_to_torch_vit(jax_vit_params(cfg.dino, seed)))
+        vit.load_state_dict(vit_state if vit_state is not None else jax_vit_state(cfg, seed))
         head = GFNet(cfg, dtype=dtype)
-        if head_state is None:
-            init_params(head, torch.Generator().manual_seed(seed))
-        else:
-            head.load_state_dict(head_state)
+        head.load_state_dict(head_state if head_state is not None else jax_head_state(cfg, seed))
+        self.mesh = None  # set by shard_for_mesh
         self.vit = vit.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
         self.head = head.to(self.device).eval().requires_grad_(False)
 
@@ -127,26 +152,28 @@ class GFNetMatcher:
 
     def forward(self, im_A: Tensor, im_B: Tensor, symmetric: bool = False, upsample: bool = False,
                 scale_factor: float = 1.0, pre_flow: Tensor | None = None,
-                pre_certainty: Tensor | None = None) -> dict:
+                pre_certainty: Tensor | None = None, corr_mesh=None) -> dict:
         """Frozen ViT + head on preprocessed NHWC images."""
         tokens = self._vit_tokens(torch.cat([im_A, im_B], dim=0))
         grids = (upsample_grid_schedule(self.cfg.upsample_res, self.cfg.dino.patch_size)
                  if upsample else None)
         return self.head(im_A, im_B, tokens, symmetric=symmetric, upsample=upsample,
                          scale_factor=scale_factor, pre_flow=pre_flow,
-                         pre_certainty=pre_certainty, num_grid_override=grids)
+                         pre_certainty=pre_certainty, num_grid_override=grids,
+                         corr_mesh=corr_mesh)
 
     def _prep_image(self, img: Tensor, size, mode: str = "bicubic") -> Tensor:
         """Antialiased resize + imagenet normalize, the reference eval
         transform: bicubic in pass 1, bilinear in pass 2, no clipping."""
         return imagenet_normalize(interpolate(img, size, mode, False, antialias=True))
 
-    def _pass1(self, im_A_raw: Tensor, im_B_raw: Tensor):
-        """Initial-resolution pass (ref `network.py:285-338`)."""
+    def _pass1(self, im_A_raw: Tensor, im_B_raw: Tensor, corr_mesh=None):
+        """Initial-resolution pass (ref `network.py:285-338`); `corr_mesh`
+        splits the coarse correlation over its ranks (latency mode)."""
         cfg = self.cfg
         im0 = self._prep_image(im_A_raw, cfg.initial_res)
         im1 = self._prep_image(im_B_raw, cfg.initial_res)
-        corresps = self.forward(im0, im1, symmetric=cfg.symmetric)
+        corresps = self.forward(im0, im1, symmetric=cfg.symmetric, corr_mesh=corr_mesh)
         num_itr = cfg.matcher.num_itr
         if cfg.upsample_preds:
             g_final = upsample_grid_schedule(cfg.upsample_res, cfg.dino.patch_size)[-1]
@@ -195,14 +222,19 @@ class GFNetMatcher:
         im = torch.as_tensor(im, dtype=torch.float32).to(self.device)
         return im[None] if im.dim() == 3 else im
 
+    def _match_batch(self, a: Tensor, b: Tensor, corr_mesh=None) -> tuple[Tensor, Tensor]:
+        pre_flow, pre_cert, low = self._pass1(a, b, corr_mesh)
+        return self._pass2(a, b, pre_flow, pre_cert, low)
+
     @torch.inference_mode()
     def match(self, im_A_raw, im_B_raw) -> tuple[Tensor, Tensor]:
         """im_*_raw: (H, W, 3) or (B, H, W, 3) float in [0, 1] → the dense warp
-        (B, G, 2G, 4) and certainty (B, G, 2G) (no batch axis for 3-D input)."""
+        (B, G, 2G, 4) and certainty (B, G, 2G) (no batch axis for 3-D input).
+        Under a mesh every rank returns the whole batch."""
         batched = torch.as_tensor(im_A_raw).dim() == 4
         a, b = self._as_batch(im_A_raw), self._as_batch(im_B_raw)
-        pre_flow, pre_cert, low = self._pass1(a, b)
-        warp, certainty = self._pass2(a, b, pre_flow, pre_cert, low)
+        (a, b), corr_mesh, gather = self._place_batch(a.shape[0], a, b)
+        warp, certainty = (gather(t) for t in self._match_batch(a, b, corr_mesh))
         if not batched:
             return warp[0], certainty[0]
         return warp, certainty
@@ -230,7 +262,7 @@ class GFNetMatcher:
         def gumbel_topk(weights, u, k):
             logw = torch.log(weights.clamp_min(1e-30))
             logw = torch.where(weights <= 0, torch.full_like(logw, -math.inf), logw)
-            return torch.topk(logw - torch.log(-torch.log(u)), k).indices
+            return topk_indices(logw - torch.log(-torch.log(u)), k)
 
         def take(m, c, idx):
             return torch.take_along_dim(m, idx[..., None], dim=-2), torch.take_along_dim(c, idx, dim=-1)
@@ -243,25 +275,51 @@ class GFNetMatcher:
         p = torch.where(density < 10, torch.full_like(p, 1e-7), p)
         return take(good_matches, good_cert, gumbel_topk(p, u_bal, n_bal))
 
-    def _draws(self, n: int, num: int, generator: torch.Generator):
-        """One pair's random numbers, in order: the Gumbel uniforms of the
-        certainty draw (N,), of the balanced draw (n_good,) or None, and the
-        (K, 4) RANSAC minimal-sample indices."""
+    def _draws(self, sample_keys, ransac_keys, n: int, num: int):
+        """The random numbers the JAX package draws for sampling and solving:
+        under each sample key, the certainty draw (N,) and the balanced draw
+        (n_good,), uniforms on [1e-20, 1) under the two keys of its split;
+        under each RANSAC key, `randint(key, (K, 4), 0, n_out)`. All words
+        are hashed in one pass on the device. Returns u_good (B, N), u_bal
+        (B, n_good) or None, and idx (B, K, 4) or None without RANSAC keys."""
         n_good, n_out = self._sample_sizes(n, num)
-        u = lambda k: torch.rand(k, generator=generator, device=self.device).clamp_min(1e-20)
-        u_good = u(n)
-        u_bal = u(n_good) if "balanced" in self.cfg.sample_mode else None
-        idx = torch.randint(0, n_out, (NUM_HYPOTHESES, 4), generator=generator, device=self.device)
-        return u_good, u_bal, idx
+        balanced = "balanced" in self.cfg.sample_mode
+        m = 4 * NUM_HYPOTHESES
+
+        def halves(keys):
+            pairs = [jax_init.split(as_key(k)) for k in keys]
+            return [p[0] for p in pairs], [p[1] for p in pairs]
+
+        good, bal = halves(sample_keys)
+        bal = bal if balanced else []
+        hi, lo = halves(ransac_keys)
+        b, r = len(good), len(hi)
+        words = jax_random.draw_words(good + bal + hi + lo,
+                                      [n] * b + [n_good] * len(bal) + [m] * (2 * r), self.device)
+        u_good = jax_random.uniform_of(words[:b * n].view(b, n), GUMBEL_MIN, 1.0)
+        u_bal = (jax_random.uniform_of(words[b * n:b * (n + n_good)].view(b, n_good), GUMBEL_MIN, 1.0)
+                 if balanced else None)
+        if not r:
+            return u_good, u_bal, None
+        hi_w, lo_w = words[-2 * r * m:].view(2, r, m)
+        return u_good, u_bal, jax_random.randint_of(hi_w, lo_w, 0, n_out).view(r, NUM_HYPOTHESES, 4)
+
+    def _pair_draws(self, pair_keys, n: int, num: int) -> tuple[Tensor, Tensor | None, Tensor]:
+        """Each pair's draws from its key, as the JAX package's
+        `_sample_solve_batched_jit` makes them: `k1, k2 = split(key)`,
+        sampling under k1 and RANSAC under k2 (`_draws`)."""
+        k1, k2 = zip(*(jax_init.split(as_key(k)) for k in pair_keys))
+        return self._draws(k1, k2, n, num)
 
     @torch.inference_mode()
-    def sample(self, matches, certainty, num: int = 5000,
-               generator: torch.Generator | None = None) -> tuple[Tensor, Tensor]:
-        generator = generator or torch.Generator(self.device).manual_seed(0)
+    def sample(self, matches, certainty, num: int = 5000, key=None) -> tuple[Tensor, Tensor]:
+        """`num` matches drawn from a pair's warp and certainty, with the
+        JAX package's `sample(..., key)` draws: the two Gumbel draws from
+        `split(key)`."""
         m = torch.as_tensor(matches).to(self.device).reshape(-1, 4)
         c = torch.as_tensor(certainty).to(self.device).reshape(-1)
-        u_good, u_bal, _ = self._draws(c.shape[0], num, generator)
-        return self._sample_core(m, c, num, u_good, u_bal)
+        u_good, u_bal, _ = self._draws([key], [], c.shape[0], num)
+        return self._sample_core(m, c, num, u_good[0], None if u_bal is None else u_bal[0])
 
     # ----------------------------------------------------------------- solve
     def _solve(self, matches: Tensor, hw_a: tuple[int, int], hw_b: tuple[int, int],
@@ -274,29 +332,64 @@ class GFNetMatcher:
         return ransac_homography_from_indices(pos_a, pos_b, None, idx)[0]
 
     def _sample_solve(self, warp: Tensor, certainty: Tensor, num: int, hw_a, hw_b,
-                      draws: list) -> Tensor:
+                      draws: tuple) -> Tensor:
         """Sample `num` matches per pair and solve, all B pairs at once, with
-        each pair's `_draws` given → (B, 3, 3)."""
+        the pairs' draws given (`_pair_draws`) → (B, 3, 3)."""
         b = warp.shape[0]
-        u_good, u_bal, idx = (None if d[0] is None else torch.stack(d) for d in zip(*draws))
+        u_good, u_bal, idx = draws
         matches, _ = self._sample_core(warp.reshape(b, -1, 4), certainty.reshape(b, -1), num,
                                        u_good, u_bal)
         return self._solve(matches, hw_a, hw_b, idx)
 
+    # ------------------------------------------------------ several devices
+    def shard_for_mesh(self, mesh) -> None:
+        """Serve over `mesh` (`parallel.mesh.create_mesh`): every rank then
+        calls `match` / `estimate_homography*` with the same request (the
+        JAX package's `shard_for_mesh`, with processes for devices). The
+        frozen ViT stays whole on every rank; sharding it is not ported."""
+        self.mesh = mesh
+
+    def _place_batch(self, n: int, *xs):
+        """How a batch of `n` runs: (the inputs `xs` as this rank runs them,
+        the mesh its coarse correlation is split over, `gather`, which makes
+        the batch's results from this rank's). Without a mesh the batch runs
+        whole. A batch at least as large as the mesh has its last row
+        repeated until it splits evenly over the ranks (the JAX package's
+        `_pad_to_mesh`), each rank runs its rows, and `gather` stacks every
+        rank's results back to `n` rows. A smaller batch runs whole on every
+        rank with only its coarse correlation split (latency mode)."""
+        if self.mesh is None or n < self.mesh.size:
+            return xs, self.mesh, lambda t: t
+        pad = (-n) % self.mesh.size
+
+        def rows(x):
+            if pad:
+                x = (torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if torch.is_tensor(x)
+                     else np.concatenate([x, x[-1:].repeat(pad, 0)]))
+            return x[self.mesh.rows(len(x))]
+
+        return tuple(rows(x) for x in xs), None, lambda t: self.mesh.all_gather_rows(t)[:n]
+
     @torch.inference_mode()
     def estimate_homography_batched(self, im_A_raw, im_B_raw, num_matches: int = 5000,
-                                    generator: torch.Generator | None = None) -> Tensor:
+                                    key=None, pair_keys=None) -> Tensor:
         """match → sample → robust solve for (B, H, W, 3) pairs → (B, 3, 3),
         H mapping image-A pixels to image-B pixels at the input resolutions
-        (corner-aligned, ref `estimation.py:26-45`)."""
-        generator = generator or torch.Generator(self.device).manual_seed(0)
+        (corner-aligned, ref `estimation.py:26-45`). Pair i draws from
+        `split(key, B)[i]`, as in the JAX package, or from `pair_keys[i]`
+        where they are given (a benchmark that repeats JAX's serial chain
+        hands each pair its own)."""
         a, b = self._as_batch(im_A_raw), self._as_batch(im_B_raw)
-        warp, certainty = self.match(a, b)
-        draws = [self._draws(certainty[0].numel(), num_matches, generator) for _ in range(len(a))]
-        return self._sample_solve(warp, certainty, num_matches, tuple(a.shape[1:3]),
-                                  tuple(b.shape[1:3]), draws)
+        n_pairs, hw_a, hw_b = a.shape[0], tuple(a.shape[1:3]), tuple(b.shape[1:3])
+        keys = (jax_init.split(as_key(key), n_pairs) if pair_keys is None
+                else np.asarray(pair_keys, np.uint32).reshape(n_pairs, 2))
+        (a, b, keys), corr_mesh, gather = self._place_batch(n_pairs, a, b, keys)
+        warp, certainty = self._match_batch(a, b, corr_mesh)
+        draws = self._pair_draws(keys, certainty[0].numel(), num_matches)
+        return gather(self._sample_solve(warp, certainty, num_matches, hw_a, hw_b, draws))
 
-    def estimate_homography(self, im_A_raw, im_B_raw, num_matches: int = 5000,
-                            generator: torch.Generator | None = None) -> Tensor:
-        """One (H, W, 3) pair → H (3, 3)."""
-        return self.estimate_homography_batched(im_A_raw, im_B_raw, num_matches, generator)[0]
+    def estimate_homography(self, im_A_raw, im_B_raw, num_matches: int = 5000, key=None) -> Tensor:
+        """One (H, W, 3) pair → H (3, 3), drawn from `split(key, 1)[0]` as
+        the JAX package's `estimate_homography` draws (the first pair's key
+        of a batch under the same key)."""
+        return self.estimate_homography_batched(im_A_raw, im_B_raw, num_matches, key)[0]

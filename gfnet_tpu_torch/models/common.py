@@ -10,7 +10,7 @@ channels-last NCHW tensor (`permute`, no copy) and returns NHWC.
 
 from __future__ import annotations
 
-import math
+import contextlib
 
 import torch
 import torch.nn as nn
@@ -112,7 +112,14 @@ class BatchNorm(nn.Module):
     convention: flax's 0.99 is 0.01 here). The running variance takes the
     biased batch variance, as flax does and `F.batch_norm` does not. While
     `update_running` is False the running statistics stay put:
-    `checkpoint_module` sets it for the forward that backward repeats."""
+    `checkpoint_module` sets it for the forward that backward repeats.
+
+    With a `mesh` (`parallel.mesh.Mesh`, set by `sync_batch_norms`) the
+    moments are those of the global batch, as the JAX package's are over a
+    sharded batch (`gfnet_tpu/models/refiner.py:200-205`): every rank holds
+    as many rows (`parallel.shard_batch` splits evenly), so the global E[x]
+    and E[x²] are the means of the ranks' own, all-reduced differentiably.
+    In a world of one that is this process's arithmetic bit for bit."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.01):
         super().__init__()
@@ -123,13 +130,16 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.update_running = True
+        self.mesh = None
 
     def forward(self, x: Tensor) -> Tensor:
         xf = x.float()
         if self.training:
             red = tuple(range(x.dim() - 1))
-            mean = xf.mean(red)
-            var = ((xf * xf).mean(red) - mean * mean).clamp_min(0.0)
+            mean, mean_sq = xf.mean(red), (xf * xf).mean(red)
+            if self.mesh is not None:  # every rank holds as many rows
+                mean, mean_sq = self.mesh.all_reduce(torch.stack([mean, mean_sq])) / self.mesh.size
+            var = (mean_sq - mean * mean).clamp_min(0.0)
             if self.update_running:
                 with torch.no_grad():
                     self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
@@ -138,6 +148,20 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean.float(), self.running_var.float()
         mul = self.weight.float() * torch.rsqrt(var + self.eps)
         return (xf - mean) * mul + self.bias.float()
+
+
+@contextlib.contextmanager
+def sync_batch_norms(module: nn.Module, mesh):
+    """Within the block, every BatchNorm of `module` takes its training
+    moments over the global batch of `mesh` (None: this process's batch)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.mesh = None
 
 
 def checkpoint_module(module: nn.Module, fn, *args):
@@ -191,30 +215,3 @@ def gelu(x: Tensor) -> Tensor:
     """Exact (erf) GELU, except in bf16, where the JAX package uses the tanh
     approximation (`gfnet_tpu/models/vit.py:56-66`)."""
     return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
-
-
-@torch.no_grad()
-def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded torch init of the head, following the distributions of the JAX
-    package's head initializers (not its draws): Dense weights lecun-normal
-    (truncated), conv weights U(±1/√fan_in) (`fpn.py:44`, `refiner.py:150,224`),
-    biases 0, norms 1/0, BatchNorm running stats 0/1. The ViT is not drawn
-    here: `utils/jax_init.jax_vit_params` draws the JAX package's."""
-    for m in module.modules():
-        if isinstance(m, Dense):
-            std = 1.0 / math.sqrt(m.in_features) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, Conv):
-            bound = 1.0 / math.sqrt(m.weight[0].numel())
-            m.weight.uniform_(-bound, bound, generator=generator)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, (LayerNorm, BatchNorm)):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-            if isinstance(m, BatchNorm):
-                m.running_mean.zero_()
-                m.running_var.fill_(1.0)
-    return module

@@ -4,7 +4,9 @@ Counterpart of `gfnet_tpu/models/gfnet.py:45-264` (ref
 `model/network.py:17-283`):
   - the two views stacked to 2B through shared extractors, and the
     symmetric duplication with swapped roles;
-  - the coarse init: global correlation + softmax expectation at the ViT grid;
+  - the coarse init: global correlation + softmax expectation at the ViT
+    grid, split over the ranks of `corr_mesh` where the JAX package splits
+    it (`_use_sharded_corr`);
   - per-scale ConvRefiners with displacement scaling `int(scale)/(4*W0)`;
   - the inference early-zero of converged displacements (rel < 1e-6);
   - detached bilinear upsampling between scales;
@@ -31,7 +33,7 @@ from gfnet_tpu_torch.models.common import checkpoint_module
 from gfnet_tpu_torch.models.crossview import CrossViewDecoder
 from gfnet_tpu_torch.models.fpn import FPNDecoder, FPNEncoder, conv_bn_act
 from gfnet_tpu_torch.models.refiner import ConvRefiner
-from gfnet_tpu_torch.ops.correlation import corr_volume_flow
+from gfnet_tpu_torch.ops.correlation import corr_volume_flow, corr_volume_flow_sharded
 from gfnet_tpu_torch.ops.resize import interpolate
 
 Tensor = torch.Tensor
@@ -59,6 +61,16 @@ class GFNet(nn.Module):
             refiners[scale] = ConvRefiner(2 * feat_at_scale[scale] + disp + k, disp, r, dtype=dtype)
         self.conv_refiner = nn.ModuleDict(refiners)
 
+    @staticmethod
+    def _use_sharded_corr(corr_mesh, f_shape) -> bool:
+        """The JAX package's routing (`gfnet_tpu/models/gfnet.py:106-115`):
+        the grid-split correlation where the batch B' leaves the mesh idle
+        (B' % d != 0) and the target cells split evenly."""
+        if corr_mesh is None:
+            return False
+        d = corr_mesh.size
+        return f_shape[0] % d != 0 and (f_shape[1] * f_shape[2]) % d == 0
+
     def extract_features(self, x: Tensor, vit_tokens: Tensor, grid_hw: tuple[int, int],
                          upsample: bool = False) -> tuple[dict, dict]:
         """Per-view 5-level pyramids (ref `network.py:156-201`). x: (2B, H, W, 3)
@@ -79,10 +91,11 @@ class GFNet(nn.Module):
     def forward(self, im_A: Tensor, im_B: Tensor, vit_tokens: Tensor, symmetric: bool = False,
                 upsample: bool = False, scale_factor: float = 1.0,
                 pre_flow: Tensor | None = None, pre_certainty: Tensor | None = None,
-                num_grid_override: tuple[int, ...] | None = None) -> dict:
+                num_grid_override: tuple[int, ...] | None = None, corr_mesh=None) -> dict:
         """Coarse-to-fine forward (ref `network.py:203-283`). Returns
         corresps[scale][itr] = {"flow": (B', G, G, 2), "certainty": (B', G, G, 1)},
-        B' = 2B when symmetric."""
+        B' = 2B when symmetric. `corr_mesh`: a mesh whose every rank holds
+        this same batch (the matcher's latency mode)."""
         cfg = self.cfg
         _, h0, w0, _ = im_A.shape
         x = torch.cat([im_A, im_B], dim=0)
@@ -118,7 +131,8 @@ class GFNet(nn.Module):
                     flow = interpolate(pre_flow, (g, g), "bilinear", False)
                     certainty = interpolate(pre_certainty, (g, g), "bilinear", False)
                 else:
-                    flow = corr_volume_flow(f0, f1)
+                    flow = (corr_volume_flow_sharded(f0, f1, corr_mesh)
+                            if self._use_sharded_corr(corr_mesh, f0.shape) else corr_volume_flow(f0, f1))
                     certainty = torch.zeros(flow.shape[:-1] + (1,), dtype=flow.dtype, device=flow.device)
             corresps[scale] = {}
             displacement_pre = torch.zeros_like(flow) + 1e-7

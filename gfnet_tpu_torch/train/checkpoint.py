@@ -4,6 +4,9 @@ Counterpart of `gfnet_tpu/train/checkpoint.py` with `torch.save` in place of
 Orbax. The frozen ViT stays out of the checkpoint: only the head (parameters
 and BatchNorm running statistics), the optimizer state and the step.
 
+Under a mesh (`parallel.mesh.Mesh`) rank 0 writes and prunes, every rank
+waits for it at a barrier, and every rank restores the same file.
+
 Saves are crash-safe: each save is written under a temporary name and renamed
 into a fresh versioned `step_<N>.pt`, so a partially written file never
 carries a final name, and older versions are pruned only after the new one is
@@ -23,9 +26,10 @@ _STEP_RE = re.compile(r"^step_(\d+)\.pt$")
 
 
 class Checkpointer:
-    def __init__(self, root: str, name: str, keep: int = 2):
+    def __init__(self, root: str, name: str, keep: int = 2, mesh=None):
         self.dir = os.path.abspath(os.path.join(root, name))
         self.keep = max(1, keep)
+        self.mesh = mesh
         os.makedirs(self.dir, exist_ok=True)
 
     def _step_files(self) -> list[tuple[int, str]]:
@@ -43,15 +47,18 @@ class Checkpointer:
         return files[-1][1] if files else None
 
     def save(self, state: TrainState) -> None:
-        payload = {"step": state.step, "head": state.head.state_dict(),
-                   "optimizer": state.optimizer.state_dict()}
-        path = os.path.join(self.dir, f"step_{state.step:09d}.pt")
-        tmp = f"{path}.tmp-{os.getpid()}"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        # prune only after the new version is committed
-        for _, old in self._step_files()[: -self.keep]:
-            os.remove(old)
+        if self.mesh is None or self.mesh.rank == 0:
+            payload = {"step": state.step, "head": state.head.state_dict(),
+                       "optimizer": state.optimizer.state_dict()}
+            path = os.path.join(self.dir, f"step_{state.step:09d}.pt")
+            tmp = f"{path}.tmp-{os.getpid()}"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            # prune only after the new version is committed
+            for _, old in self._step_files()[: -self.keep]:
+                os.remove(old)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def restore(self, state: TrainState) -> TrainState | None:
         """Load the newest checkpoint into `state` (in place) and return it,

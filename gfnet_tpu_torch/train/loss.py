@@ -15,6 +15,12 @@ Counterpart of `gfnet_tpu/train/loss.py` (ref `losses/robust_loss.py`):
 The reference's boolean indexing (`epe[prob > 0.99]`) is a masked mean here,
 sum(mask * v) / max(sum(mask), 1), as in the JAX package: the same value at
 a static shape, with no host synchronization on the mask's count.
+
+Under a mesh (`parallel.mesh.Mesh`), where each rank holds as many rows of
+the batch, every mean is the global batch's, as the JAX package's over a
+sharded batch: a masked mean all-reduces its numerator and its count, so
+the ranks' masks may count differently (the pck telemetry too); the BCE
+mean averages the ranks' means.
 """
 
 from __future__ import annotations
@@ -49,8 +55,25 @@ def gt_warp_from_homography(H_s2t: Tensor, src_hw: tuple[int, int], tgt_hw: tupl
     return x2_n, prob
 
 
-def _masked_mean(v: Tensor, mask: Tensor) -> Tensor:
-    return (v * mask).sum() / mask.sum().clamp_min(1.0)
+def _global_sums(mesh, total: Tensor, count: Tensor) -> tuple[Tensor, Tensor]:
+    """(Σ total, Σ count) over the ranks of `mesh`; as they are without one."""
+    if mesh is None:
+        return total, count
+    sums = mesh.all_reduce(torch.stack([total, count.to(total.dtype)]))
+    return sums[0], sums[1]
+
+
+def _masked_mean(v: Tensor, mask: Tensor, mesh=None) -> Tensor:
+    total, count = _global_sums(mesh, (v * mask).sum(), mask.sum())
+    return total / count.clamp_min(1.0)
+
+
+def _mean(v: Tensor, mesh=None) -> Tensor:
+    """The mean over the global batch: the ranks' means averaged, as every
+    rank holds as many rows."""
+    if mesh is None:
+        return v.mean()
+    return mesh.all_reduce(v.mean()) / mesh.size
 
 
 def sigmoid_bce(logits: Tensor, labels: Tensor) -> Tensor:
@@ -72,7 +95,7 @@ class RobustLoss:
     im_size: int = 448
 
     def __call__(self, corresps: dict, H_s2t: Tensor, src_hw: tuple[int, int],
-                 tgt_hw: tuple[int, int]) -> tuple[Tensor, dict[str, Tensor]]:
+                 tgt_hw: tuple[int, int], mesh=None) -> tuple[Tensor, dict[str, Tensor]]:
         local_dist = self.local_dist or {1: 4, 2: 4, 4: 8, 8: 8}
         tot = 0.0
         metrics: dict[str, Tensor] = {}
@@ -98,12 +121,12 @@ class RobustLoss:
                 cert = corresps[scale_str][itr]["certainty"].float()
                 epe = torch.linalg.vector_norm(flow - x2, dim=-1)  # (B, gh, gw)
                 decay = self.iteration_base ** (n_itr - itr)
-                ce_loss = ce_loss + decay * sigmoid_bce(cert[..., 0], prob).mean()
+                ce_loss = ce_loss + decay * _mean(sigmoid_bce(cert[..., 0], prob), mesh)
                 charb = cs**a * ((epe / cs) ** 2 + 1.0) ** (a / 2)
-                reg_loss = reg_loss + decay * _masked_mean(charb, sup_mask)
+                reg_loss = reg_loss + decay * _masked_mean(charb, sup_mask, mesh)
                 if itr == n_itr:
                     num_px = self.im_size / scale
-                    pck = _masked_mean((epe < 0.5 * (2 / num_px)).to(torch.float32), sup_mask)
+                    pck = _masked_mean((epe < 0.5 * (2 / num_px)).to(torch.float32), sup_mask, mesh)
                     metrics[f"train_pck_05_scale_{scale}"] = pck
                     prev_epe = epe.detach()
 

@@ -1,12 +1,25 @@
 """The training step.
 
-Counterpart of `gfnet_tpu/train/step.py` on one device: forward (frozen ViT
-in the model dtype without gradient), multi-scale robust loss, backward,
-gradient telemetry and the per-module stabilizers, global-norm clip, AdamW
-update and the BatchNorm running-statistics refresh. The training forward
-runs symmetric=False like the reference's (`trainer/train.py:31`). Sharding
-over several devices (the JAX step's `mesh` and `fsdp_vit` arguments) is not
-ported yet.
+Counterpart of `gfnet_tpu/train/step.py`: forward (frozen ViT in the model
+dtype without gradient), multi-scale robust loss, backward, gradient
+telemetry and the per-module stabilizers, global-norm clip, AdamW update and
+the BatchNorm running-statistics refresh. The training forward runs
+symmetric=False like the reference's (`trainer/train.py:31`).
+
+With a `mesh` (`parallel.mesh.Mesh`) each rank steps on its rows of the
+global batch, and the step is the JAX step's over the sharded batch: the
+BatchNorm moments and the loss's means are the global batch's (all-reduced
+in the forward), and the gradients are combined over the ranks before the
+telemetry, the stabilizers, the clip and AdamW, so every rank sees what the
+JAX step sees and takes the same update. The combine is one all-reduce of
+all gradients flattened into a buffer, divided by the number of ranks:
+the backward of the forward's all-reduces already sums the ranks'
+gradients of the replicated loss into each rank's share, so each rank holds
+`size` times its share of the global gradient (`Mesh.all_reduce`).
+`DistributedDataParallel` would average too, but it starts its reductions
+inside the backward and over buckets of its own, where the order against
+the forward's own collectives in recomputed (checkpointed) blocks is not
+this code's to choose. The JAX step's `fsdp_vit` is not ported yet.
 
 Modules are named as the JAX package's top-level parameter groups, so
 `freeze`, `module_clip` and `module_spike_zero` take the same names in both:
@@ -22,6 +35,7 @@ import torch
 import torch.nn as nn
 
 from gfnet_tpu_torch.matcher.api import imagenet_normalize
+from gfnet_tpu_torch.models.common import sync_batch_norms
 from gfnet_tpu_torch.train.loss import RobustLoss
 from gfnet_tpu_torch.train.state import TrainState, global_norm
 
@@ -36,9 +50,21 @@ def head_modules(head: nn.Module) -> dict[str, nn.Module]:
     return groups
 
 
+def combine_gradients(params: list, mesh) -> None:
+    """Replace each parameter's `.grad` by its mean over the ranks of
+    `mesh`, in one all-reduce of the gradients flattened into one buffer."""
+    if mesh is None:
+        return
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    mesh.all_reduce_(flat).div_(mesh.size)
+    torch._foreach_copy_(grads, [part.view_as(g) for g, part in zip(grads, flat.split([g.numel() for g in grads]))])
+
+
 def make_train_step(
     matcher,
     loss: RobustLoss,
+    mesh=None,
     symmetric: bool = False,
     freeze: tuple[str, ...] = (),
     module_clip: dict[str, float] | None = None,
@@ -47,9 +73,11 @@ def make_train_step(
     """Build the train step.
 
     matcher: GFNetMatcher (provides the frozen ViT, the device and dtype).
+    mesh: the ranks the global batch is split over, or None for one process.
     Returns step(state, batch) -> (state, metrics). batch is a dict with
     im_A/im_B (B, H, W, 3), imagenet-normalized floats or raw uint8, and
-    H_s2t (B, 3, 3), as numpy arrays or tensors. The state is updated in
+    H_s2t (B, 3, 3), as numpy arrays or tensors: this rank's rows under a
+    mesh (`parallel.mesh.shard_batch`). The state is updated in
     place and returned; metrics are 0-dim tensors on the device. The head is
     in train mode during the step and back in eval mode after it, so a
     matcher that shares the head keeps matching with running statistics.
@@ -75,9 +103,11 @@ def make_train_step(
         head.train()
         try:
             head.zero_grad(set_to_none=True)
-            corresps = head(im_a, im_b, tokens, symmetric=symmetric)
-            total, metrics = loss(corresps, H_s2t.float(), tuple(im_a.shape[1:3]), tuple(im_b.shape[1:3]))
-            total.backward()
+            with sync_batch_norms(head, mesh):
+                corresps = head(im_a, im_b, tokens, symmetric=symmetric)
+                total, metrics = loss(corresps, H_s2t.float(), tuple(im_a.shape[1:3]),
+                                      tuple(im_b.shape[1:3]), mesh=mesh)
+                total.backward()
         finally:
             head.eval()
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -86,6 +116,7 @@ def make_train_step(
             for p in head.parameters():  # a leaf the loss did not reach counts as zero
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            combine_gradients(list(head.parameters()), mesh)
             grads = {k: [p.grad for p in ps] for k, ps in groups.items()}
             # NaN/Inf-gradient telemetry (ref `trainer/train.py:21-25`), from
             # the gradients before freeze, so blowups inside a frozen module

@@ -9,7 +9,9 @@
     keys → (state_dict, kv_norm); `load_vit_npz`: converted DINOv2 weights;
   - `load_head_pth`, `load_vit_pth`: a reference `.pth` head and the public
     DINOv2 `.pth`, whose names the port's modules share;
-  - `load_head`, `load_vit`: either format, by the file's extension.
+  - `load_head`, `load_vit`: either format, by the file's extension;
+  - `jax_head_state`, `jax_vit_state`: the weights the JAX package's
+    `GFNetMatcher(cfg, seed=seed)` draws (`utils/jax_init.py`), as state dicts.
 
 Trees are nested dicts of numpy arrays (or anything `np.asarray` takes).
 Layouts: flax Dense kernels are (in, out), torch's (out, in); conv kernels
@@ -245,3 +247,19 @@ def load_head(path: str) -> tuple[dict, bool]:
 def load_vit(path: str) -> dict:
     """DINOv2 weights, converted `.npz` or public `.pth` → ViT state dict."""
     return load_vit_npz(path) if path.endswith(".npz") else load_vit_pth(path)
+
+
+def jax_vit_state(cfg, seed: int = 0) -> dict:
+    """The ViT of the JAX package's `GFNetMatcher(cfg, seed=seed)` as the
+    port's state dict (`cfg` a `ModelConfig`)."""
+    from gfnet_tpu_torch.utils.jax_init import jax_vit_params
+
+    return flax_to_torch_vit(jax_vit_params(cfg.dino, seed))
+
+
+def jax_head_state(cfg, seed: int = 0) -> dict:
+    """The head of the JAX package's `GFNetMatcher(cfg, seed=seed)` as the
+    port's `GFNet` state dict."""
+    from gfnet_tpu_torch.utils.jax_init import jax_head_params
+
+    return flax_to_torch_head(jax_head_params(cfg, seed))

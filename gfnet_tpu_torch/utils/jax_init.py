@@ -1,8 +1,9 @@
-"""The JAX package's random ViT, drawn in numpy bit for bit.
+"""The JAX package's random weights and draws, repeated in numpy bit for bit.
 
-`gfnet_tpu.matcher.api.GFNetMatcher(cfg, seed=s)` draws its frozen ViT with
+`gfnet_tpu.matcher.api.GFNetMatcher(cfg, seed=s)` draws its weights with
 `init_params(jax.random.PRNGKey(s))`: `kv, kh = split(key)`, then
-`VisionTransformer.init(kv, ...)`. Each draw there is a deterministic
+`VisionTransformer.init(kv, ...)` for the frozen ViT and
+`GFNet.init(kh, ...)` for the head. Each draw there is a deterministic
 computation, repeated here without JAX:
 
   - threefry2x32 (`jax/_src/prng.py`) in the partitionable layout (JAX's
@@ -19,7 +20,14 @@ computation, repeated here without JAX:
     splits the raw key under the scan into one key a layer and keeps the
     path folded in after it, with the counters of the body's second trace;
   - `lecun_normal`: truncated normal on (-2, 2) times
-    sqrt(1/fan_in) / 0.87962566, fan_in = in_features × receptive field.
+    sqrt(1/fan_in) / 0.87962566, fan_in = in_features × receptive field;
+    the head's convolutions take `torch_uniform_init`, a uniform on
+    ±1/sqrt(fan_in) (`gfnet_tpu/models/common.py:18-30`);
+  - `randint`: two bit draws from `split(key)`, the high and the low word of
+    a 64-bit value reduced modulo the span (`jax._src.random._randint`).
+
+The sampler and RANSAC draw on the matcher's device with the same
+arithmetic (`utils/jax_random.py`); this file is their plain version.
 
 Integer bits and uniforms equal JAX's exactly. XLA computes erf_inv from
 Giles' single-precision polynomial after a `log1p` of its own; this file
@@ -121,6 +129,22 @@ def _bits(key, start: int, stop: int) -> np.ndarray:
 def random_bits(key, shape) -> np.ndarray:
     """`jax.random.bits(key, shape, uint32)`."""
     return _draw(key, shape, lambda b: b, np.uint32)
+
+
+def randint(key, shape, minval: int, maxval: int) -> np.ndarray:
+    """`jax.random.randint(key, shape, minval, maxval)` in int32: the high
+    and the low words from `split(key)`, each reduced modulo the span, joined
+    by 2**32 mod span in uint32 arithmetic. maxval <= minval gives minval."""
+    if not (-(1 << 31) <= minval and maxval < 1 << 31):
+        raise ValueError(f"randint bounds ({minval}, {maxval}) are not int32")
+    k_hi, k_lo = split(key)
+    span = max(maxval - minval, 1)
+    multiplier = (1 << 16) % span
+    multiplier = multiplier * multiplier % (1 << 32) % span  # uint32 product, as JAX's
+    hi = random_bits(k_hi, shape).astype(np.uint64) % np.uint64(span)
+    lo = random_bits(k_lo, shape).astype(np.uint64) % np.uint64(span)
+    offset = (hi * np.uint64(multiplier) % np.uint64(1 << 32) + lo) % np.uint64(1 << 32)
+    return (offset % np.uint64(span)).astype(np.int64).astype(np.int32) + np.int32(minval)
 
 
 # ------------------------------------------------------- float32 transforms
@@ -252,10 +276,10 @@ def _vit_dense_layers(cfg) -> dict:
 
 
 class Draw(NamedTuple):
-    """One random leaf (or one layer of a stacked leaf) of the JAX ViT: its
+    """One random leaf (or one layer of a stacked leaf) of a JAX tree: its
     path in the tree, the layer along the stacked depth axis (None for an
-    unstacked leaf), its key, and how it is drawn: "lecun_normal", or
-    "normal" with `stddev`."""
+    unstacked leaf), its key, and how it is drawn: "lecun_normal", "normal"
+    with `stddev`, or "uniform" on ±`bound`."""
 
     path: tuple
     layer: int | None
@@ -263,6 +287,19 @@ class Draw(NamedTuple):
     init: str
     shape: tuple
     stddev: float | None = None
+    bound: float | None = None
+
+
+def _value(draw: Draw, out: np.ndarray | None = None) -> np.ndarray:
+    if draw.init == "lecun_normal":
+        return lecun_normal(draw.key, draw.shape, out=out)
+    if draw.init == "uniform":
+        value = uniform(draw.key, draw.shape, -draw.bound, draw.bound)
+    else:
+        value = normal_init(draw.key, draw.shape, draw.stddev)
+    if out is not None:
+        out[...] = value
+    return value
 
 
 def vit_draws(cfg, seed: int = 0) -> list[Draw]:
@@ -309,16 +346,157 @@ def jax_vit_params(cfg, seed: int = 0) -> dict:
         block[parent][name] = {"kernel": np.empty((depth, *shape), _F32),
                                "bias": zeros(depth, shape[1])}
     params["blocks"] = {"block": block}
-    for draw in vit_draws(cfg, seed):
+    _fill(params, vit_draws(cfg, seed))
+    return {"params": params}
+
+
+def _fill(tree: dict, draws: list[Draw]) -> None:
+    """Put each draw's value at its path in `tree` (a stacked leaf there
+    already, for a draw with a layer)."""
+    for draw in draws:
         *parents, leaf = draw.path
-        node = params
+        node = tree
         for k in parents:
             node = node.setdefault(k, {})
-        if draw.init == "lecun_normal":
-            out = None if draw.layer is None else node[leaf][draw.layer]
-            value = lecun_normal(draw.key, draw.shape, out=out)
-        else:
-            value = normal_init(draw.key, draw.shape, draw.stddev)
         if draw.layer is None:
-            node[leaf] = value
-    return {"params": params}
+            node[leaf] = _value(draw)
+        else:
+            _value(draw, out=node[leaf][draw.layer])
+
+
+# ----------------------------------------------------------- the head tree
+HIDDEN_BLOCKS, REFINE_KERNEL = 8, 5  # `gfnet_tpu/models/refiner.py` ConvRefiner defaults
+SCALES = ("16", "8", "4", "2", "1")
+
+
+class Leaf(NamedTuple):
+    """One leaf of the JAX head's variables: its collection ("params" or
+    "batch_stats"), its path, its shape (a scanned leaf's without the layer
+    axis), the number of scanned layers (None: not scanned), and how it is
+    made: "lecun_normal" (a Dense kernel), "uniform" (a convolution kernel,
+    `torch_uniform_init`) or a constant fill."""
+
+    collection: str
+    path: tuple
+    shape: tuple
+    layers: int | None
+    init: str | float
+
+
+def _head_leaves(cfg) -> list[Leaf]:
+    """Every leaf of `gfnet_tpu.models.gfnet.GFNet(cfg)`'s variables, in the
+    modules' layout (`gfnet_tpu/models/{crossview,fpn,refiner}.py`)."""
+    leaves: list[Leaf] = []
+    add = lambda path, shape, init, layers=None, coll="params": leaves.append(
+        Leaf(coll, path, tuple(shape), layers, init))
+
+    def dense(path, i, o, bias=True):
+        add(path + ("kernel",), (i, o), "lecun_normal")
+        if bias:
+            add(path + ("bias",), (o,), 0.0)
+
+    def norm(path, c, layers=None, stats=False):
+        add(path + ("scale",), (c,), 1.0, layers)
+        add(path + ("bias",), (c,), 0.0, layers)
+        if stats:
+            add(path + ("mean",), (c,), 0.0, layers, "batch_stats")
+            add(path + ("var",), (c,), 1.0, layers, "batch_stats")
+
+    def conv(path, k, i, o, bias, layers=None):
+        add(path + ("kernel",), (k, k, i, o), "uniform", layers)
+        if bias:
+            add(path + ("bias",), (o,), 0.0, layers)
+
+    def conv_bn(path, k, i, o, bias):
+        conv(path + ("conv",), k, i, o, bias)
+        norm(path + ("bn",), o, stats=True)
+
+    fd = tuple(cfg.encoder.feat_chs)  # coarse → fine
+    dec = cfg.dino.decoder_cfg
+    dim = fd[0]
+    dense(("crossview", "proj"), cfg.dino.d_model, dim, bias=False)
+    hidden = int(dim * dec.mlp_ratio)
+    for i in range(dec.num_cross_attn):
+        blk = ("crossview", f"cross{i}")
+        for name in ("q_proj", "k_proj", "v_proj"):
+            dense(blk + ("attn", name), dim, dim, bias=False)
+        dense(blk + ("attn", "proj"), dim, dim)
+        for name in ("ls1", "ls2"):
+            add(blk + (name, "gamma"), (dim,), float(dec.init_values))
+        for name in ("norm1", "norm2"):
+            norm(blk + (name,), dim)
+        if dec.ffn_type == "glu":
+            dense(blk + ("mlp_w12",), dim, 2 * hidden)
+            dense(blk + ("mlp_w3",), hidden, dim)
+        else:
+            dense(blk + ("mlp_fc1",), dim, hidden)
+            dense(blk + ("mlp_fc2",), hidden, dim)
+    c0, c1, c2, c3 = fd[::-1]  # fine → coarse
+    for name, k, i, o in (("conv00", 7, 3, c0), ("conv01", 5, c0, c0), ("downsample1", 5, c0, c1),
+                          ("conv10", 3, c1, c1), ("conv11", 3, c1, c1), ("downsample2", 5, c1, c2),
+                          ("conv20", 3, c2, c2), ("conv21", 3, c2, c2), ("downsample3", 3, c2, c3),
+                          ("conv30", 3, c3, c3), ("conv31", 3, c3, c3)):
+        conv_bn(("encoder", name), k, i, o, bias=False)
+    for name, k, i, o in (("out0", 1, c3, c3), ("inner1", 3, c3 + c2, c2), ("out1", 1, c2, c2),
+                          ("inner2", 3, c2 + c1, c1), ("out2", 1, c1, c1),
+                          ("inner3", 3, c1 + c0, c0), ("out3", 1, c0, c0)):
+        conv_bn(("fpn_decoder", name), k, i, o, bias=True)
+    conv_bn(("merge_layer",), 3, 2 * fd[0], fd[0], bias=True)
+    feat_at_scale = {"16": fd[0], "8": fd[0], "4": fd[1], "2": fd[2], "1": fd[3]}
+    for i, scale in enumerate(SCALES):
+        r, disp = cfg.matcher.radius[i], cfg.matcher.displacement_dim[i]
+        h = 2 * feat_at_scale[scale] + disp + ((2 * r + 1) ** 2 if r > 0 else 0)
+        ref = (f"refiners_{scale}",)
+        conv(ref + ("disp_emb",), 1, 2, disp, bias=True)
+        for blk, layers in ((ref + ("block1",), None), (ref + ("hidden", "block"), HIDDEN_BLOCKS)):
+            conv(blk + ("dw",), REFINE_KERNEL, 1, h, bias=True, layers=layers)
+            norm(blk + ("bn",), h, layers, stats=True)
+            conv(blk + ("pw",), 1, h, h, bias=True, layers=layers)
+        conv(ref + ("out_conv",), 1, h, 3, bias=True)
+    return leaves
+
+
+def head_draws(cfg, seed: int = 0) -> list[Draw]:
+    """Every random draw of the JAX package's
+    `GFNetMatcher(cfg, seed=seed).init_params(PRNGKey(seed))` head, drawn by
+    `GFNet.init(kh, ...)` with `kh = split(PRNGKey(seed))[1]`.
+
+    Every random leaf is a kernel, the first parameter its scope makes, so
+    its key folds in (scope path..., 1). The refiners' hidden blocks run
+    under `nn.scan`, which splits `kh` itself into one key a layer and keeps
+    the path folded in after it; Flax traces the scan body twice and the
+    scope's counter runs on (kernel 1, bias 2, then kernel 3), as for the
+    ViT's blocks (`vit_draws`)."""
+    kh = split(prng_key(seed))[1]
+    layer_keys = split(kh, HIDDEN_BLOCKS)
+    draws = []
+    for leaf in _head_leaves(cfg):
+        if leaf.init not in ("lecun_normal", "uniform"):
+            continue
+        scope = leaf.path[:-1]
+        fan_in = math.prod(leaf.shape[:-1])
+        bound = float(1.0 / np.sqrt(fan_in)) if leaf.init == "uniform" else None
+        if leaf.layers is None:
+            draws.append(Draw(leaf.path, None, fold_in_path(kh, scope + (1,)), leaf.init, leaf.shape,
+                              bound=bound))
+        else:
+            draws += [Draw(leaf.path, i, fold_in_path(layer_keys[i], scope + (3,)), leaf.init, leaf.shape,
+                           bound=bound) for i in range(leaf.layers)]
+    return draws
+
+
+def jax_head_params(cfg, seed: int = 0) -> dict:
+    """The numpy tree {"params": ..., "batch_stats": ...} that the JAX
+    package's `GFNetMatcher(cfg, seed=seed).head_vars` holds, all float32,
+    the hidden blocks stacked along a leading layer axis. `cfg` is a
+    `ModelConfig`."""
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for leaf in _head_leaves(cfg):
+        node = tree[leaf.collection]
+        for k in leaf.path[:-1]:
+            node = node.setdefault(k, {})
+        shape = leaf.shape if leaf.layers is None else (leaf.layers, *leaf.shape)
+        fill = 0.0 if isinstance(leaf.init, str) else leaf.init
+        node[leaf.path[-1]] = np.full(shape, fill, _F32)
+    _fill(tree["params"], head_draws(cfg, seed))
+    return tree

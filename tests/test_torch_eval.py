@@ -27,10 +27,9 @@ from gfnet_tpu_torch.eval import benchmark as tbench  # noqa: E402
 from gfnet_tpu_torch.eval.demo import demo_estimation  # noqa: E402
 from gfnet_tpu_torch.eval.synthetic import benchmark_mace, eval_pairs  # noqa: E402
 from gfnet_tpu_torch.matcher import GFNetMatcher  # noqa: E402
-from gfnet_tpu_torch.models.common import init_params  # noqa: E402
 from gfnet_tpu_torch.models.gfnet import GFNet  # noqa: E402
 from gfnet_tpu_torch.models.vit import VisionTransformer  # noqa: E402
-from gfnet_tpu_torch.utils.convert import load_head_npz  # noqa: E402
+from gfnet_tpu_torch.utils.convert import jax_head_state, load_head_npz  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_HEAD = os.path.join(REPO, "workspace", "trained_head_tiny.npz")
@@ -77,11 +76,11 @@ class _StubJax:
 class _StubTorch:
     device = torch.device("cpu")
 
-    def estimate_homography(self, a, b, num_matches=5000, generator=None):
+    def estimate_homography(self, a, b, num_matches=5000, key=None):
         assert a.dtype == torch.float32 and float(a.max()) <= 1.0
         return torch.from_numpy(_stub_homography(a.numpy()))
 
-    def estimate_homography_batched(self, a, b, generator=None):
+    def estimate_homography_batched(self, a, b, key=None, pair_keys=None):
         return torch.from_numpy(np.stack([_stub_homography(x) for x in a.numpy()]))
 
 
@@ -162,9 +161,26 @@ def tiny_matcher():
                         dtype=torch.float32, head_state=head)
 
 
+# The port's own `eval_pairs` differ from the JAX package's (rounded to
+# uint8) by one level on a few pixels. That keeps the candidates of the
+# certainty draw but reorders them, and the balanced draw and RANSAC address
+# positions, so a pair is in effect drawn anew: on a pair the tiny head does
+# not register, ACE then lands anywhere in its spread over keys (pair 0 here:
+# 33-70 px over 8 keys, 47.5 against 26.4 px across the two pair sets). On a
+# pair both register within 5 px (AUC@5's threshold) the two readings lie
+# inside that pair's spread over 8 keys (pair 1: 2.60-3.33 and 2.44-3.50 px);
+# a sound run reads 2.81 against 3.13. `scripts/pair_swing_torch.py` prints
+# these readings.
+REGISTERED_PX = 5.0
+REGISTERED_PAIR_TOL = 1.0
+
+
 def test_benchmark_mace_on_the_val_directory_and_on_pairs_made_here(tiny_matcher, valdir):
-    """Float images read from the directory's PNGs, and uint8 pairs from
-    `eval_pairs`, which the benchmark divides by 255: the same pairs."""
+    """Float images read from the directory's PNGs, and uint8 pairs made
+    here as the directory's writer makes them (the JAX package's
+    `eval_pairs`, rounded to uint8), which the benchmark divides by 255: the
+    same pairs, so the same MACE under the same keys. Then the port's own
+    `eval_pairs`: per pair against those, on the pairs both register."""
     from gfnet_tpu_torch.data.dataset import HomographyDataset
 
     ds = HomographyDataset(dataset="synthetic_tiny", mode="val", data_path=str(valdir),
@@ -172,9 +188,17 @@ def test_benchmark_mace_on_the_val_directory_and_on_pairs_made_here(tiny_matcher
     mace, errors = benchmark_mace(tiny_matcher, [ds[i] for i in range(2)], num_matches=500)
     assert len(errors) == 2 and mace == float(np.mean(errors))
     assert all(0.0 <= e <= 70.0 for e in errors)
-    pairs = eval_pairs(2, 112, 0.3, seed=1234, device="cpu")
-    mace_u8, _ = benchmark_mace(tiny_matcher, pairs, num_matches=500)
+    to_u8 = lambda x: (np.clip(x, 0, 1) * 255).round().astype(np.uint8)  # tools/make_synth_valdir.py
+    pairs = [{"im_A": to_u8(p["im_A"]), "im_B": to_u8(p["im_B"]), "H_s2t": p["H_s2t"]}
+             for p in jax_eval_pairs(2, 112, 0.3, seed=1234)]
+    mace_u8, errors_u8 = benchmark_mace(tiny_matcher, pairs, num_matches=500)
     assert abs(mace_u8 - mace) < 0.05 * max(mace, 1.0)
+    _, port_errors = benchmark_mace(tiny_matcher, eval_pairs(2, 112, 0.3, seed=1234, device="cpu"),
+                                    num_matches=500)
+    registered = [(p, j) for p, j in zip(port_errors, errors_u8) if max(p, j) < REGISTERED_PX]
+    assert registered, (port_errors, errors_u8)
+    for p, j in registered:
+        assert abs(p - j) <= REGISTERED_PAIR_TOL, (port_errors, errors_u8)
 
 
 def test_demo_estimation_from_files_writes_the_plot(tiny_matcher, valdir, tmp_path):
@@ -234,7 +258,8 @@ def test_cli_train_eval_after_runs_the_benchmark(valdir, tmp_path, capsys):
 # ----------------------------------------------------------- .pth loading
 def test_from_pretrained_reads_pth_head_and_dinov2(tmp_path):
     cfg = tiny_test_config()
-    head = init_params(GFNet(cfg, dtype=torch.float32), torch.Generator().manual_seed(4))
+    head = GFNet(cfg, dtype=torch.float32)
+    head.load_state_dict(jax_head_state(cfg, 4))
     sd = head.state_dict()
     saved = dict(sd, **{"fpn_decoder.0.1.num_batches_tracked": torch.tensor(3)})
     torch.save({"model": saved, "n": 12345, "lr_scheduler": {"last_epoch": 3}}, tmp_path / "latest.pth")

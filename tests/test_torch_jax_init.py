@@ -1,4 +1,6 @@
-"""`gfnet_tpu_torch/utils/jax_init.py` against `jax.random` and Flax.
+"""`gfnet_tpu_torch/utils/jax_init.py` and `utils/jax_random.py` against
+`jax.random` and Flax: the ViT, the head, and the draws the sampler and
+RANSAC make.
 
 Keys, random bits and uniforms must equal JAX's bit for bit. Normal and
 truncated-normal values go through erf_inv, whose `log1p` XLA evaluates its
@@ -24,6 +26,8 @@ from gfnet_tpu.models.vit import VisionTransformer as JVisionTransformer
 from gfnet_tpu_torch.config import DinoConfig, tiny_test_config
 from gfnet_tpu_torch.matcher import GFNetMatcher
 from gfnet_tpu_torch.utils import jax_init as ji
+from gfnet_tpu_torch.utils import jax_random as jr
+from gfnet_tpu_torch.utils.convert import flax_to_torch_head as convert_head
 from gfnet_tpu_torch.utils.convert import flax_to_torch_vit
 
 
@@ -131,10 +135,17 @@ def test_vit_params_equal_jax_init_for_every_leaf(kw):
         np.testing.assert_array_equal(_jax_leaf(d), w, err_msg=f"{d.path} layer {d.layer}")
 
 
-def test_matcher_backbone_is_the_jax_matchers(monkeypatch):
+@functools.lru_cache(maxsize=None)
+def _jax_matcher(seed: int):
+    """The JAX package's tiny float32 matcher for `seed` (built once per seed)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("GFNET_KV_NORM", raising=False)
+        return JGFNetMatcher(jax_tiny_config(), seed=seed, dtype=jnp.float32)
+
+
+def test_matcher_backbone_is_the_jax_matchers():
     """`GFNetMatcher(tiny, seed=0)`'s ViT is JAX's `GFNetMatcher(tiny, seed=0)`'s."""
-    monkeypatch.delenv("GFNET_KV_NORM", raising=False)
-    jm = JGFNetMatcher(jax_tiny_config(), seed=0, dtype=jnp.float32)
+    jm = _jax_matcher(0)
     want = flax_to_torch_vit(jax.tree_util.tree_map(np.asarray, jm.vit_params))
     got = GFNetMatcher(tiny_test_config(), device="cpu", dtype=torch.float32, seed=0).vit.state_dict()
     assert sorted(got) == sorted(want)
@@ -144,3 +155,84 @@ def test_matcher_backbone_is_the_jax_matchers(monkeypatch):
     other = GFNetMatcher(tiny_test_config(), device="cpu", dtype=torch.float32, seed=1).vit.state_dict()
     assert not torch.equal(other["blocks.0.attn.qkv.weight"], got["blocks.0.attn.qkv.weight"])
 
+
+
+# ------------------------------------------------------------------ the head
+def _jax_head_vars(seed: int):
+    return _jax_matcher(seed).head_vars
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_uniform(shape: tuple):
+    return jax.jit(lambda k, bound: jax.random.uniform(k, shape, jnp.float32, -bound, bound))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_head_params_equal_jax_matchers_head_for_every_leaf(seed):
+    """`jax_head_params(tiny, seed)` is `GFNetMatcher(tiny, seed=seed).head_vars`:
+    the same leaves, convolution kernels (uniforms) and constants bit for bit,
+    Dense kernels (truncated normals) within `NORMAL_ULPS`; and the port's
+    matcher built from the seed alone holds that head."""
+    head_vars = _jax_head_vars(seed)
+    want = {jax.tree_util.keystr(p): np.asarray(v) for p, v in jax.tree_util.tree_leaves_with_path(head_vars)}
+    got = {jax.tree_util.keystr(p): v for p, v in
+           jax.tree_util.tree_leaves_with_path(ji.jax_head_params(tiny_test_config(), seed))}
+    assert sorted(got) == sorted(want) and len(want) > 200
+    draws = ji.head_draws(tiny_test_config(), seed)
+    normals = {jax.tree_util.keystr(tuple(jax.tree_util.DictKey(k) for k in ("params", *d.path)))
+               for d in draws if d.init == "lecun_normal"}
+    assert len(normals) == 7  # the cross-view decoder's Dense kernels
+    for path, w in want.items():
+        g = got[path]
+        assert g.shape == w.shape and g.dtype == w.dtype == np.float32, path
+        if path in normals:
+            assert ulps(g, w).max() <= ji.NORMAL_ULPS and w.std() > 0, path
+        else:
+            np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32), err_msg=path)
+    state = GFNetMatcher(tiny_test_config(), device="cpu", dtype=torch.float32, seed=seed).head.state_dict()
+    bridged = convert_head(head_vars)
+    assert sorted(state) == sorted(bridged)
+    for k, w in bridged.items():
+        assert ulps(state[k].numpy(), w.numpy()).max() <= ji.NORMAL_ULPS, k
+
+
+def test_head_draw_keys_are_jaxs():
+    """JAX's own initializers on the keys `head_draws` derives give JAX's
+    leaves exactly, the scanned hidden blocks' per-layer keys included."""
+    params = _jax_head_vars(0)["params"]
+    for d in ji.head_draws(tiny_test_config(), 0):
+        w = _leaf(params, d.path)
+        w = w if d.layer is None else w[d.layer]
+        got = (_jax_leaf(d) if d.init == "lecun_normal"
+               else np.asarray(_jax_uniform(d.shape)(jnp.asarray(d.key), np.float32(d.bound))))
+        np.testing.assert_array_equal(got, w, err_msg=f"{d.path} layer {d.layer}")
+
+
+# ------------------------------------------------------------------- randint
+@pytest.mark.parametrize("n", [1, 3, 7, 300, 4096, 5000, 70000])
+def test_randint_equals_jax_bit_for_bit(n):
+    for seed in (0, 9, 2**31 + 5):
+        key = jax.random.PRNGKey(seed)
+        want = np.asarray(jax.random.randint(key, (512, 4), 0, n))
+        np.testing.assert_array_equal(ji.randint(ji.prng_key(seed), (512, 4), 0, n), want)
+        np.testing.assert_array_equal(jr.randint(ji.prng_key(seed), (512, 4), 0, n).numpy(), want)
+    np.testing.assert_array_equal(ji.randint(ji.prng_key(3), (9,), 5, 12),
+                                  np.asarray(jax.random.randint(jax.random.PRNGKey(3), (9,), 5, 12)))
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 1000), (204800,)])
+def test_device_draws_equal_numpy_and_jax_bit_for_bit(shape):
+    """The torch draws (`utils/jax_random.py`, here on the CPU) against their
+    numpy plain version and `jax.random`: bits and uniforms, one key and
+    several segments hashed in one pass."""
+    key = ji.prng_key(21)
+    np.testing.assert_array_equal(jr.random_bits(key, shape, "cpu").numpy().astype(np.uint32),
+                                  ji.random_bits(key, shape))
+    for lo, hi in ((0.0, 1.0), (1e-20, 1.0), (-0.3, 2.0)):
+        got = jr.uniform(key, shape, lo, hi).numpy()
+        want = np.asarray(jax.random.uniform(jax.random.PRNGKey(21), shape, jnp.float32, lo, hi))
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    keys = ji.split(key, 3)
+    words = jr.draw_words(keys, [5, 0, 11], "cpu").numpy().astype(np.uint32)
+    np.testing.assert_array_equal(words, np.concatenate([ji.random_bits(keys[0], (5,)),
+                                                         ji.random_bits(keys[2], (11,))]))

@@ -116,9 +116,15 @@ def test_ransac_same_indices_as_jax(seed):
 
 
 def test_ransac_generator_draw_and_corner_error():
+    """RANSAC drawing its own hypotheses under a JAX key: the same indices as
+    the JAX package's `randint(key, (512, 4), 0, N)`, so the same solve."""
     rng = np.random.default_rng(6)
     H_true, src, dst = _homography_pair(rng)
-    H, inl = thom.ransac_homography(T(src), T(dst), generator=torch.Generator().manual_seed(0))
+    key = jax.random.PRNGKey(4)
+    H, inl = thom.ransac_homography(T(src), T(dst), key=np.asarray(key))
+    H_j, inl_j = jhom.ransac_homography(jnp.asarray(src), jnp.asarray(dst), key=key)
+    assert float(thom.corner_error(H, T(np.asarray(H_j)), 200.0, 160.0)) < 1e-2
+    assert (N(inl) != np.asarray(inl_j)).sum() <= 2
     assert torch.isfinite(H).all() and float(H[2, 2]) == pytest.approx(1.0, abs=1e-6)
     ce_t = float(thom.corner_error(H, T(H_true), 200.0, 160.0))
     ce_j = float(jhom.corner_error(jnp.asarray(N(H)), jnp.asarray(H_true), 200.0, 160.0))

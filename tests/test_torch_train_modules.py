@@ -28,11 +28,12 @@ from gfnet_tpu_torch.cli import train as cli_train
 from gfnet_tpu_torch.config import TrainConfig, tiny_test_config
 from gfnet_tpu_torch.data.homography_synth import random_homography_pair
 from gfnet_tpu_torch.eval import synthetic
-from gfnet_tpu_torch.models.common import BatchNorm, init_params
+from gfnet_tpu_torch.models.common import BatchNorm
 from gfnet_tpu_torch.models.gfnet import GFNet
 from gfnet_tpu_torch.train.checkpoint import Checkpointer
 from gfnet_tpu_torch.train.loss import RobustLoss, gt_warp_from_homography
 from gfnet_tpu_torch.train.state import TrainState, create_train_state, make_lr_schedule
+from gfnet_tpu_torch.utils.convert import jax_head_state
 from gfnet_tpu_torch.utils.logging import MetricLogger
 
 
@@ -186,7 +187,8 @@ def test_optimizer_matches_optax_across_a_chunk_boundary():
 
 # ------------------------------------------------------------- checkpointer
 def _tiny_state(seed: int) -> TrainState:
-    head = init_params(GFNet(tiny_test_config(), dtype=torch.float32), torch.Generator().manual_seed(seed))
+    head = GFNet(tiny_test_config(), dtype=torch.float32)
+    head.load_state_dict(jax_head_state(tiny_test_config(), seed))
     return create_train_state(head, TrainConfig(), 8)
 
 
@@ -327,3 +329,29 @@ def test_cli_asking_for_cuda_without_a_gpu_raises(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         cli_train.main(["--tiny", "--dataset", "synth", "--workspace", str(tmp_path),
                         "--dinov2_weights", str(tmp_path / "absent.npz")], batches=iter(()))
+
+
+@pytest.mark.parametrize("kw", [dict(uint8=True, cross_modal_frac=0.5), dict(cross_modal_frac=0.0)],
+                         ids=["uint8_cross_modal", "float"])
+def test_train_batch_on_a_device_matches_the_cv2_stream(kw):
+    """The tensor-op stream (`device=`) against the `cv2` one from the same
+    generator, with `eval_pairs`' rule: homographies within float32 rounding
+    (2e-6 relative), uint8 images at most 1 level off on under 0.1% of the
+    pixels (a sound run: 1 level on 0.012%); float images within 1e-4 of a
+    unit range (a sound run read 5.9e-6), the bulk within 1e-6."""
+    want = synthetic.train_batch(np.random.default_rng(11), 3, 112, **kw)
+    got = synthetic.train_batch(np.random.default_rng(11), 3, 112, device="cpu", **kw)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert str(got[k].dtype).split(".")[-1] == str(want[k].dtype), k
+        assert tuple(got[k].shape) == want[k].shape, k
+    Hw = want["H_s2t"]
+    np.testing.assert_allclose(got["H_s2t"].numpy(), Hw, rtol=2e-6, atol=1e-6 * np.abs(Hw).max())
+    for k in ("im_A", "im_B"):
+        g, w = got[k].numpy(), want[k]
+        if kw.get("uint8"):
+            diff = np.abs(g.astype(np.int16) - w.astype(np.int16))
+            assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, (k, diff.max(), (diff > 0).mean())
+        else:
+            diff = np.abs(g - w) * synthetic.IMAGENET_STD  # back to the [0, 1] range
+            assert diff.max() <= 1e-4 and np.median(diff) <= 1e-6, (k, diff.max())
