@@ -7,13 +7,15 @@ Run from the repository root, with no arguments:
 
 Phases, one JSON line each:
   1. device: the card's name and power limit (`nvidia-smi`), TF32 switched off
-     for float32 matmuls and convolutions;
+     for float32 matmuls and convolutions; then `utils/profiling.roofline_report`
+     of `ModelConfig()` at B=1 and B=8 against the card's peaks;
   2. build: compile the CUDA kernels from `gfnet_tpu_torch/csrc/`;
   3. K1 (oneshot_attention) against its plain version at every main-path
      attention shape, bf16, with timings (kernel, plain, SDPA), then on slices
      of a fused qkv projection as the ViT hands them over, against the plain
-     version that repeats the kernels' schedule, and the host's cost of one
-     launch;
+     version that repeats the kernels' schedule, then at the head dims a
+     config can give (32, 128, and 12 zero-padded to 16) and the ViT at 1120²
+     (kv 6401), each in bf16 and float32, and the host's cost of one launch;
   4. K2 (local_corr) against its plain version at every main-path shape, on
      a homography flow (the refiners' smooth flow: tiles stage their windows
      in shared memory) and a random one (the worst case: no tile stages),
@@ -61,13 +63,19 @@ Phases, one JSON line each:
      with checkpoints, a restore that compares equal, the launch counts per
      step, step time, peak memory, one profiled step, and how K2 and K3 tile
      the refiners' flows of one more step;
+  ops_extra: the ops off the main path that reach the card:
+     `local_correlation_multilevel` (K2 at each of 3 pooled levels) against
+     the plain version, and `grid_sample` with border padding against the CPU;
   dist: the multi-device path over NCCL in a world of one (the card's
      machine has one GPU; more ranks are held on the CPU by
      `tests/test_torch_parallel.py`): the flagship train step (B=8, 448²,
-     bf16) through `make_train_step(mesh=...)` against the same step without
-     a mesh (loss and every gradient, phase 8's gates), `shard_for_mesh`
-     serving at B=8 against the unsharded matcher under one key (equal H),
-     and `corr_volume_flow_sharded` against the dense version.
+     bf16) through `make_train_step(mesh=...)`, with the ViT whole and
+     sharded (`fsdp_vit=True`), against the same step without a mesh (loss
+     and every gradient, phase 8's gates), one step with and one without the
+     mesh profiled (`utils/profiling.trace`), `shard_for_mesh` serving at B=8
+     with the ViT whole and sharded against the unsharded matcher under one
+     key (equal H), the ViT's resident bytes and all-gathers, and
+     `corr_volume_flow_sharded` against the dense version.
 Then the seconds each phase took, a line with the per-kernel summary (K2
 and K3 at their slowest shape on the homography flow, the random flow's time
 beside it), and as the last line `{"ok": true, "device": {...}}`. Any failed check exits non-zero without it.
@@ -79,6 +87,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -93,10 +102,7 @@ ORACLE = ROOT / "workspace" / "eval_synth_r5b.json"
 # the oracle's protocol: 100 pairs a set at 448², deformation 0.3, batches of 4
 ACC_PAIRS, ACC_RES, ACC_DEFORMATION, ACC_SEED, ACC_BATCH = 100, 448, 0.3, 1234, 4
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+# The card's peaks and `bound()` are `gfnet_tpu_torch/utils/profiling.py`'s.
 # exponentials: 16 a clock on each of the 132 SMs' special-function units, at
 # the card's maximum SM clock as `nvidia-smi` reports it (phase 1)
 SFU_PER_CLOCK = 16 * 132
@@ -168,6 +174,10 @@ DIST_CORR_ATOL = 1e-5
 DIST_SERVE_PX = 1e-3
 # flagship train steps timed with and without the mesh, in turns (a reading)
 DIST_STEP_REPEATS = 5
+# `grid_sample` with border padding, float32, on the card against the CPU:
+# both are `F.grid_sample`, whose corner weights round alike up to the
+# order of a few float32 operations on values of about 1
+GRID_SAMPLE_ATOL = 1e-5
 LEARN_JAX = {"mace_random": 67.42307868745905, "mace_trained": 2.9560503634743203,
              "source": "workspace/learnability_500.json (scripts/learnability_e2e.py, CPU)"}
 
@@ -194,17 +204,6 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(ops: list, nbytes: float, exps: float = 0.0, exp_rate: float = 1.0) -> tuple[float, str]:
-    """The least time in ms the card could take, and which term sets it:
-    operations over their peak rate (`ops`: (count, rate) pairs, one for
-    each operand type, whose times add), bytes over the memory rate, or
-    exponentials over the special-function units' rate."""
-    terms = {"operations": sum(n / rate for n, rate in ops), "bytes": nbytes / PEAK_BYTES,
-             "exponentials": exps / exp_rate}
-    by = max(terms, key=terms.get)
-    return 1e3 * terms[by], by
-
-
 def phase_device(torch) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -221,6 +220,13 @@ def phase_device(torch) -> dict:
             "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
     emit("device", **info)
+    from gfnet_tpu_torch.config import ModelConfig
+    from gfnet_tpu_torch.utils.profiling import model_op_costs, roofline_report
+
+    cfg = ModelConfig()
+    emit("roofline", config="ModelConfig()", peaks="H100 SXM data sheet (utils/profiling.py)",
+         **{f"batch_{b}": {"report": roofline_report(cfg, b).splitlines(),
+                           "ops": [vars(c) for c in model_op_costs(cfg, b)]} for b in (1, 8)})
     return info
 
 
@@ -243,8 +249,10 @@ def phase_k1(torch, exp_rate: float) -> dict:
     from gfnet_tpu_torch.ops import kernels
     from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, scaled_dot_product_attention,
                                                streamed_attention_plain)
+    from gfnet_tpu_torch.utils.profiling import PEAK_BF16_FLOPS, PEAK_F32_FLOPS, bound
 
     gen = torch.Generator("cuda").manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
     # (B, N, H, D, scale) as the main path calls K1: the ViT at 448²/560² on
     # the stacked pair, the cross-view decoder with both directions stacked;
     # then the train step's two shapes (8 pairs at 448²)
@@ -253,37 +261,46 @@ def phase_k1(torch, exp_rate: float) -> dict:
               (2, 1600, 8, 8, entropy_invariant_scale(8, 1600, 1024)),
               (16, 1025, 16, 64, 64**-0.5),
               (16, 1024, 8, 8, entropy_invariant_scale(8, 1024, 1024))]
+    # head dims a config can give the cross-view decoder (nhead 2 over 64
+    # channels: D=32; nhead 1 over 128: D=128; D=12, zero-padded to 16), and
+    # the ViT at 1120² (kv 6401, past the 4096 where the JAX package hands
+    # over to the library's flash kernel), each in bf16 and float32
+    other = [(2, 1024, 2, 32, 32**-0.5), (2, 1024, 1, 128, 128**-0.5), (2, 1024, 8, 12, 12**-0.5),
+             (1, 6401, 16, 64, 64**-0.5)]
     # the six shapes contiguous, then the two ViT shapes as slices of a fused
     # qkv projection (token stride 3·H·D), which is how the ViT calls K1
-    cases = [(shape, False) for shape in shapes] + [(shape, True) for shape in shapes[:2]]
+    cases = ([(shape, False, bf16) for shape in shapes] + [(shape, True, bf16) for shape in shapes[:2]]
+             + [(shape, False, dt) for shape in other for dt in (bf16, f32)])
     rows = []
-    for (b, n, h, d, scale), fused in cases:
+    for (b, n, h, d, scale), fused, dtype in cases:
         if fused:
-            qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+            qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(dtype)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         else:
-            q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-                       for _ in range(3))
+            q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
         got = kernels.oneshot_attention(q, k, v, scale).float()
         want = scaled_dot_product_attention(q.float(), k.float(), v.float(), scale)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         rel = err / want.abs().max().item()
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        row = {"shape": [b, n, h, d], "fused_qkv_slices": fused, "scale": scale, "max_abs_err": err,
+        row = {"shape": [b, n, h, d], "dtype": str(dtype).split(".")[-1], "fused_qkv_slices": fused,
+               "kernel_head_dim": kernels.attention_head_dim(d), "scale": scale, "max_abs_err": err,
                "max_rel_err": rel, "atol": K1_ATOL,
                "kernel_ms": cuda_ms(torch, lambda: kernels.oneshot_attention(q, k, v, scale), 20),
                "plain_ms": cuda_ms(torch, lambda: scaled_dot_product_attention(q, k, v, scale), 5),
                "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), 20)}
-        row["bound_ms"], row["bound_by"] = bound([(4 * b * n * n * h * d, PEAK_BF16_FLOPS)], 4 * b * n * h * d * 2,
+        # the function's work at its own D (a padded launch does more)
+        rate, elem = (PEAK_BF16_FLOPS, 2) if dtype == bf16 else (PEAK_F32_FLOPS, 4)
+        row["bound_ms"], row["bound_by"] = bound([(4 * b * n * n * h * d, rate)], 4 * b * n * h * d * elem,
                                                  b * h * n * n, exp_rate)
-        if b == 2:  # the kernels' own schedule in PyTorch, in bf16 as the kernel runs it
+        if b == 2 and dtype == bf16:  # the kernels' own schedule in PyTorch, in bf16 as the kernel runs it
             streamed = streamed_attention_plain(q, k, v, scale).float()
             row["max_rel_err_vs_streamed"] = ((got - streamed).abs().max() / streamed.abs().max()).item()
             row["streamed_rtol"] = K1_STREAMED_RTOL
         emit("k1", **row)
         if not err <= K1_ATOL:
-            raise AssertionError(f"K1 {row['shape']}: max abs err {err} > {K1_ATOL}")
+            raise AssertionError(f"K1 {row['shape']} {row['dtype']}: max abs err {err} > {K1_ATOL}")
         if not row.get("max_rel_err_vs_streamed", 0.0) <= K1_STREAMED_RTOL:
             raise AssertionError(f"K1 {row['shape']} against its streamed plain version: "
                                  f"{row['max_rel_err_vs_streamed']} > {K1_STREAMED_RTOL}")
@@ -406,6 +423,8 @@ def corr_ops(active: int, r: int, c: int, dot_rate: float) -> list:
     whose window meets the map, a multiply-add per patch value (at the rate
     of the operands' type, `dot_rate`) and 7 float32 operations a tap (the
     four-corner combine, or the spread of the gradient)."""
+    from gfnet_tpu_torch.utils.profiling import PEAK_F32_FLOPS
+
     return [(active * 2 * (2 * r + 2) ** 2 * c, dot_rate), (active * 7 * (2 * r + 1) ** 2, PEAK_F32_FLOPS)]
 
 
@@ -425,6 +444,7 @@ def phase_k2(torch, against=None) -> dict:
     with the random flow's time beside it."""
     from gfnet_tpu_torch.ops import kernels
     from gfnet_tpu_torch.ops.local_correlation import _local_correlation_patch, local_corr_tiled_plain
+    from gfnet_tpu_torch.utils.profiling import PEAK_BF16_FLOPS, bound
 
     gen = torch.Generator("cuda").manual_seed(2)
     # (radius, C, target side, grid side) of every refiner with r > 0 in
@@ -847,6 +867,7 @@ def phase_k3(torch, against=None) -> dict:
     from gfnet_tpu_torch.ops import kernels
     from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, local_corr_dq_plain,
                                                        local_corr_dq_tiled_plain, local_corr_tiled_plain)
+    from gfnet_tpu_torch.utils.profiling import PEAK_F32_FLOPS, bound
 
     gen = torch.Generator("cuda").manual_seed(7)
     rows, k2_rows = [], []
@@ -1149,15 +1170,82 @@ def phase_learn(torch) -> dict:
     return r
 
 
+def phase_ops_extra(torch) -> dict:
+    """The ops off the main path that reach the card:
+    `local_correlation_multilevel` at r = 4 over 3 levels in bf16 on pass
+    1's r = 4 shape (K2 at each level of the pooled target) against the plain
+    version at each level, K2's gate; and `grid_sample` with border padding
+    on the card against the CPU, on points out to ±1.6."""
+    from gfnet_tpu_torch.ops import kernels
+    from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, local_correlation_multilevel,
+                                                       target_pyramid)
+    from gfnet_tpu_torch.ops.sampler import grid_sample
+
+    gen = torch.Generator("cuda").manual_seed(14)
+    r, c, t, g, levels = 4, 32, 112, 64, 3
+    query = torch.randn((2, g, g, c), generator=gen, device="cuda").to(torch.bfloat16)
+    target = torch.randn((2, t, t, c), generator=gen, device="cuda").to(torch.bfloat16)
+    flow = corr_flow(torch, "homography", 2, g, t, 15)
+    kernels.reset_launch_counts()
+    got = local_correlation_multilevel(query, target, flow, r, levels)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = torch.cat([_local_correlation_patch(query, lvl, flow, r) for lvl in target_pyramid(target, levels)], -1)
+    err = (got - want).abs().max().item()
+    img = torch.randn((2, 40, 50, 8), generator=gen, device="cuda")
+    grid = torch.rand((2, 30, 20, 2), generator=gen, device="cuda") * 3.2 - 1.6
+    border = grid_sample(img, grid, padding_mode="border")
+    gerr = (border.cpu() - grid_sample(img.cpu(), grid.cpu(), padding_mode="border")).abs().max().item()
+    row = {"multilevel": {"radius": r, "levels": levels, "query": [2, g, g, c], "target": [2, t, t, c],
+                          "dtype": "bfloat16", "out": list(got.shape), "max_abs_err": err, "atol": K2_ATOL,
+                          "launches": launches},
+           "grid_sample_border": {"img": [2, 40, 50, 8], "points": [2, 30, 20], "max_abs_err_vs_cpu": gerr,
+                                  "atol": GRID_SAMPLE_ATOL}}
+    emit("ops_extra", **row)
+    if launches["local_corr"] != levels:
+        raise AssertionError(f"ops_extra: multilevel launched K2 {launches['local_corr']} times, not {levels}")
+    if not err <= K2_ATOL:
+        raise AssertionError(f"ops_extra: multilevel K2 against plain {err} > {K2_ATOL}")
+    if not gerr <= GRID_SAMPLE_ATOL:
+        raise AssertionError(f"ops_extra: border grid_sample on the card vs the CPU {gerr} > {GRID_SAMPLE_ATOL}")
+    return row
+
+
+def step_profile(torch, prof, wall_ms: float) -> dict:
+    """What one profiled train step spent: its device work, the NCCL
+    kernels and the copies among it (NCCL in a world of one copies and
+    launches no kernel), the host's calls that wait for the card, and the
+    host's time by operator."""
+    evts = device_kernel_events(torch, prof)
+    nccl = [e for e in evts if "nccl" in e.key.lower()]
+    copies = [e for e in evts if "memcpy" in e.key.lower()]
+    cpu = {e.key: e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU}
+    return {"wall_ms": wall_ms, "device_kernel_ms": sum(device_us(e) for e in evts) / 1e3,
+            "kernel_launches": sum(e.count for e in evts),
+            "nccl_kernels": sum(e.count for e in nccl), "nccl_device_ms": sum(device_us(e) for e in nccl) / 1e3,
+            "copies": {e.key[:80]: {"count": e.count, "ms": device_us(e) / 1e3} for e in copies},
+            "host_waits": {k: {"count": e.count, "self_ms": e.self_cpu_time_total / 1e3} for k, e in cpu.items()
+                           if "Synchronize" in k or "WaitEvent" in k or k in ("aten::item", "aten::_local_scalar_dense")},
+            "host_self_ms": sum(e.self_cpu_time_total for e in cpu.values()) / 1e3,
+            "host_ops": {k: (e.count, e.self_cpu_time_total / 1e3) for k, e in cpu.items()}}
+
+
 def phase_dist(torch, np, m) -> dict:
     """The multi-device path over NCCL in a world of one: the flagship train
-    step through `make_train_step(mesh=...)` against the same step without a
-    mesh from the same weights (loss and every gradient, phase 8's gates),
-    `shard_for_mesh` serving at B=8 against the unsharded matcher under one
-    key, and `corr_volume_flow_sharded` against the dense version. A process
-    group that does not come up over NCCL fails the phase."""
+    step through `make_train_step(mesh=...)`, and with the frozen ViT
+    sharded (`fsdp_vit=True`), against the same step without a mesh from
+    the same weights (loss and every gradient, phase 8's gates), the three
+    timed in turns; one step with and one without the mesh profiled
+    (`utils/profiling.trace`: NCCL kernels, device and host time by
+    operator); `shard_for_mesh` serving at B=8, with the ViT whole and
+    sharded, against the unsharded matcher under one key; the ViT's
+    resident bytes and all-gathers; and `corr_volume_flow_sharded` against
+    the dense version. A process group that does not come up over NCCL
+    fails the phase."""
     import copy
     import socket
+    import statistics
+    import tempfile
 
     import torch.distributed as dist
 
@@ -1165,11 +1253,12 @@ def phase_dist(torch, np, m) -> dict:
     from gfnet_tpu_torch.core.homography import corner_error
     from gfnet_tpu_torch.ops import kernels
     from gfnet_tpu_torch.ops.correlation import corr_volume_flow, corr_volume_flow_sharded
-    from gfnet_tpu_torch.parallel import init_distributed
+    from gfnet_tpu_torch.parallel import Mesh, fsdp_param_sharding, init_distributed
     from gfnet_tpu_torch.train.loss import RobustLoss
     from gfnet_tpu_torch.train.state import create_train_state
     from gfnet_tpu_torch.train.step import make_train_step
     from gfnet_tpu_torch.utils import jax_init
+    from gfnet_tpu_torch.utils.profiling import trace
 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -1183,56 +1272,112 @@ def phase_dist(torch, np, m) -> dict:
         b, res = TRAIN_BATCH, m.cfg.initial_res[0]
         batch = synth_batch(torch, np, np.random.default_rng(10), b, res)
         saved = {k: v.detach().clone() for k, v in m.head.state_dict().items()}
-        def one_step(on):
-            """One step from the saved weights, with or without the mesh: (metrics, ms)."""
-            m.head.load_state_dict(saved)
+        vit_bytes = lambda vit: sum(p.numel() * p.element_size() for p in vit.parameters())
+        # the FSDP step shards its matcher's ViT in place: a copy, so that the
+        # other runs keep the whole one
+        fm = copy.copy(m)
+        fm.vit = copy.deepcopy(m.vit)
+        bytes_whole = vit_bytes(fm.vit)
+        spec = fsdp_param_sharding(mesh, fm.vit)
+        split_bytes = sum(p.numel() * p.element_size() for k, p in fm.vit.named_parameters() if spec[k] is not None)
+        variants = {"no_mesh": (None, m, False), "mesh": (mesh, m, False), "mesh_fsdp": (mesh, fm, True)}
+
+        def step_fn_of(name):
+            """A fresh state from the saved weights and the step of `name`."""
+            on, matcher, fsdp = variants[name]
+            m.head.load_state_dict(saved)  # `fm` shares the head
             state = create_train_state(m.head, TrainConfig(grad_clip_norm=1e30), b)
-            step_fn = make_train_step(m, RobustLoss(im_size=res), on)
+            return state, make_train_step(matcher, RobustLoss(im_size=res), on, fsdp_vit=fsdp)
+
+        def one_step(name):
+            """One step from the saved weights: (metrics, ms until the card
+            is done, ms until the step returned to the host)."""
+            state, step_fn = step_fn_of(name)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, metrics = step_fn(state, batch)
+            returned = time.perf_counter()
             torch.cuda.synchronize()
-            return metrics, (time.perf_counter() - t0) * 1e3
+            return metrics, (time.perf_counter() - t0) * 1e3, (returned - t0) * 1e3
 
         runs = {}
-        for name, on in (("no_mesh", None), ("mesh", mesh)):
+        for name in variants:
             kernels.reset_launch_counts()
-            metrics, _ = one_step(on)
+            gathers = fm.vit.fsdp.gathers if hasattr(fm.vit, "fsdp") else 0
+            metrics = one_step(name)[0]
             runs[name] = {"loss": float(metrics["total_loss"]), "launches": kernels.launch_counts(),
                           "grads": {k: p.grad.detach().float().clone() for k, p in m.head.named_parameters()}}
-        ms = {"no_mesh": [], "mesh": []}
+            if name == "mesh_fsdp":
+                runs[name]["gathers"] = fm.vit.fsdp.gathers - gathers
+        bytes_fsdp = vit_bytes(fm.vit)
+        ms = {name: [] for name in variants}
+        host_ms = {name: [] for name in variants}
         for _ in range(DIST_STEP_REPEATS):  # in turns, after the first step of each
-            for name, on in (("no_mesh", None), ("mesh", mesh)):
-                ms[name].append(one_step(on)[1])
+            for name in variants:
+                _, done, returned = one_step(name)
+                ms[name].append(done)
+                host_ms[name].append(returned)
+
+        profiled = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for name in ("no_mesh", "mesh"):
+                state, step_fn = step_fn_of(name)
+                torch.cuda.synchronize()
+                with trace(os.path.join(tmp, name)) as prof:
+                    t0 = time.perf_counter()
+                    step_fn(state, batch)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                profiled[name] = step_profile(torch, prof, wall)
+                profiled[name]["trace_bytes"] = os.path.getsize(os.path.join(tmp, name, "trace.json"))
         m.head.load_state_dict(saved)
         m.head.requires_grad_(False)
-        ref, got = runs["no_mesh"], runs["mesh"]
+
+        ref = runs["no_mesh"]
         top = lambda k: ".".join(k.split(".")[:2 if k.startswith("conv_refiner") else 1])
         scale: dict = {}
         for k, g in ref["grads"].items():
             scale[top(k)] = max(scale.get(top(k), 0.0), g.abs().max().item())
-        rel = {k: (got["grads"][k] - g).abs().max().item() / scale[top(k)] for k, g in ref["grads"].items()}
-        worst = max(rel, key=rel.get)
-        step = {"loss_mesh": got["loss"], "loss_no_mesh": ref["loss"],
-                "loss_rel_err": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]), "loss_rtol": TINY_LOSS_RTOL,
-                "grad_leaves": len(rel), "grad_max_rel_err": rel[worst], "grad_worst_leaf": worst,
-                "grad_rtol": TINY_GRAD_RTOL, "ms_mesh": ms["mesh"], "ms_no_mesh": ms["no_mesh"],
-                "ms_mesh_median": float(np.median(ms["mesh"])),
-                "ms_no_mesh_median": float(np.median(ms["no_mesh"])),
-                "launches": got["launches"]}
+        steps = {}
+        for name in ("mesh", "mesh_fsdp"):
+            got = runs[name]
+            rel = {k: (got["grads"][k] - g).abs().max().item() / scale[top(k)] for k, g in ref["grads"].items()}
+            worst = max(rel, key=rel.get)
+            steps[name] = {"loss": got["loss"], "loss_no_mesh": ref["loss"],
+                           "loss_rel_err": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                           "loss_rtol": TINY_LOSS_RTOL, "grad_leaves": len(rel), "grad_max_rel_err": rel[worst],
+                           "grad_worst_leaf": worst, "grad_rtol": TINY_GRAD_RTOL, "launches": got["launches"]}
+        steps["mesh_fsdp"]["vit_all_gathers_per_step"] = runs["mesh_fsdp"]["gathers"]
+        step_ms = {f"ms_{name}": ms[name] for name in variants}
+        step_ms.update({f"ms_{name}_median": statistics.median(ms[name]) for name in variants})
+        # the host's share: when the step returned, before the card finished
+        step_ms.update({f"host_ms_{name}_median": statistics.median(host_ms[name]) for name in variants})
+        extra = {"wall_ms": profiled["mesh"]["wall_ms"] - profiled["no_mesh"]["wall_ms"],
+                 "device_kernel_ms": profiled["mesh"]["device_kernel_ms"] - profiled["no_mesh"]["device_kernel_ms"],
+                 "host_self_ms": profiled["mesh"]["host_self_ms"] - profiled["no_mesh"]["host_self_ms"]}
+        ops_m, ops_n = profiled["mesh"].pop("host_ops"), profiled["no_mesh"].pop("host_ops")
+        grown = {k: (c, t - ops_n.get(k, (0, 0.0))[1], c - ops_n.get(k, (0, 0.0))[0]) for k, (c, t) in ops_m.items()}
+        extra["host_ops_grown"] = [{"op": k[:80], "calls": c, "extra_calls": dc, "extra_self_ms": dt}
+                                   for k, (c, dt, dc) in sorted(grown.items(), key=lambda kv: -kv[1][1])[:12]]
 
         imgs = torch.from_numpy(smooth_images(np, np.random.default_rng(12), 16, res, res)).cuda()
         key = jax_init.prng_key(3)
-        sharded = copy.copy(m)
-        sharded.shard_for_mesh(mesh)
-        kernels.reset_launch_counts()
-        H_mesh = sharded.estimate_homography_batched(imgs[:8], imgs[8:], key=key)
-        torch.cuda.synchronize()
-        serve_launches = kernels.launch_counts()
         H_ref = m.estimate_homography_batched(imgs[:8], imgs[8:], key=key)
-        ce = [corner_error(H_mesh[i].double(), H_ref[i].double(), res, res).item() for i in range(8)]
-        serve = {"batch": 8, "H_max_abs_diff": (H_mesh - H_ref).abs().max().item(),
-                 "corner_error_px_max": max(ce), "px_tol": DIST_SERVE_PX, "launches": serve_launches}
+        serve = {}
+        for name, vit in (("whole_vit", m.vit), ("fsdp_vit", fm.vit)):
+            sharded = copy.copy(m)
+            sharded.vit = vit
+            sharded.shard_for_mesh(mesh, fsdp_vit=name == "fsdp_vit")
+            gathers = vit.fsdp.gathers if name == "fsdp_vit" else 0
+            kernels.reset_launch_counts()
+            H_mesh = sharded.estimate_homography_batched(imgs[:8], imgs[8:], key=key)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            ce = [corner_error(H_mesh[i].double(), H_ref[i].double(), res, res).item() for i in range(8)]
+            serve[name] = {"batch": 8, "H_max_abs_diff": (H_mesh - H_ref).abs().max().item(),
+                           "corner_error_px_max": max(ce), "px_tol": DIST_SERVE_PX, "launches": launches}
+            if name == "fsdp_vit":  # two passes a call, each one ViT forward
+                serve[name]["vit_all_gathers_per_pass"] = (vit.fsdp.gathers - gathers) / 2
 
         gen = torch.Generator("cuda").manual_seed(13)
         f0, f1 = (torch.randn((2, 32, 32, 64), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
@@ -1240,17 +1385,33 @@ def phase_dist(torch, np, m) -> dict:
         corr = {"shape": [2, 32, 32, 64],
                 "max_abs_err": (corr_volume_flow_sharded(f0, f1, mesh) - dense).abs().max().item(),
                 "atol": DIST_CORR_ATOL}
-        out = {"backend": backend, "world_size": mesh.size, "device": str(mesh.device),
-               "train_step": step, "serve": serve, "corr": corr}
+        # what a rank would hold over more ranks, by the same rule (arithmetic, not measured)
+        per_rank = {}
+        for n in (2, 4):
+            spec_n = fsdp_param_sharding(Mesh(n, 0, mesh.device), m.vit)
+            per_rank[n] = sum(p.numel() * p.element_size() // (n if spec_n[k] is not None else 1)
+                              for k, p in m.vit.named_parameters())
+        vit = {"bytes_whole": bytes_whole, "bytes_fsdp_world_of_one": bytes_fsdp, "split_leaves":
+               sum(a is not None for a in spec.values()), "leaves": len(spec), "split_leaf_bytes": split_bytes,
+               "bytes_a_rank_arithmetic": per_rank}
+        out = {"backend": backend, "world_size": mesh.size, "device": str(mesh.device), "train_step": steps,
+               "step_ms": step_ms, "mesh_step_profile": profiled, "mesh_step_extra": extra, "vit": vit,
+               "serve": serve, "corr": corr}
         emit("dist", **out)
-        if not (math.isfinite(step["loss_mesh"]) and step["loss_rel_err"] <= TINY_LOSS_RTOL
-                and step["grad_max_rel_err"] <= TINY_GRAD_RTOL):
-            raise AssertionError(f"dist train step: loss rel {step['loss_rel_err']}, grad rel "
-                                 f"{step['grad_max_rel_err']} at {worst}")
-        if min(step["launches"].values()) == 0 or serve_launches["oneshot_attention"] == 0:
-            raise AssertionError(f"dist: launches {step['launches']} / {serve_launches}")
-        if not serve["corner_error_px_max"] <= DIST_SERVE_PX:
-            raise AssertionError(f"dist serving: sharded H {serve['corner_error_px_max']} px from the unsharded")
+        for name, step in steps.items():
+            if not (math.isfinite(step["loss"]) and step["loss_rel_err"] <= TINY_LOSS_RTOL
+                    and step["grad_max_rel_err"] <= TINY_GRAD_RTOL):
+                raise AssertionError(f"dist {name} train step: loss rel {step['loss_rel_err']}, grad rel "
+                                     f"{step['grad_max_rel_err']} at {step['grad_worst_leaf']}")
+            if min(step["launches"].values()) == 0:
+                raise AssertionError(f"dist {name}: launches {step['launches']}")
+        if steps["mesh_fsdp"]["vit_all_gathers_per_step"] == 0 or vit["split_leaves"] == 0:
+            raise AssertionError(f"dist: the FSDP step gathered nothing ({vit})")
+        for name, sv in serve.items():
+            if sv["launches"]["oneshot_attention"] == 0:
+                raise AssertionError(f"dist serving {name}: launches {sv['launches']}")
+            if not sv["corner_error_px_max"] <= DIST_SERVE_PX:
+                raise AssertionError(f"dist serving {name}: sharded H {sv['corner_error_px_max']} px from the unsharded")
         if not corr["max_abs_err"] <= DIST_CORR_ATOL:
             raise AssertionError(f"dist corr: {corr['max_abs_err']} > {DIST_CORR_ATOL}")
         return out
@@ -1298,6 +1459,7 @@ def main() -> int:
         timed("tiny_train", phase_tiny_grads, torch, np)
         train = timed("trainer", phase_trainer, torch, np, matcher)
         timed("learn", phase_learn, torch)
+        timed("ops_extra", phase_ops_extra, torch)
         timed("dist", phase_dist, torch, np, matcher)
     except Exception:
         traceback.print_exc()

@@ -18,7 +18,8 @@
 // streams through shared memory with an online softmax (running max and sum,
 // the accumulator rescaled only when a max moved).
 //
-// Three kernels, chosen by type and head dim:
+// Three kernels, chosen by type and head dim (8, 16, 32, 64 or 128; the
+// wrapper zero-pads any other head dim up to 128 to the next of these):
 //  - bf16 with D = 64 (every ViT attention): `oneshot_attention_wgmma_kernel`.
 //    Two warpgroups own 64 q rows each and share a ring of four 64-key K/V
 //    stages in shared memory. One thread fills the ring by TMA from a
@@ -34,16 +35,23 @@
 //    memory. Each step starts S(j+1) and O += P(j)·V(j) as one batch, so the
 //    tensor cores get eight products at a time and one wait a tile. Two
 //    blocks an SM: one block's softmax overlaps the other's products.
-//  - bf16 with D = 8 or 16 (the cross-view decoder): `oneshot_attention_mma_kernel`.
-//    Eight warps own 16 q rows each; K and V of the (batch, head) lie whole in
-//    shared memory (51 KB at N = 1600, D = 8; longer kv goes through in
-//    chunks of 64 KB), brought by 16-byte `cp.async`. S is `mma.sync.m16n8k8`
-//    (k16 at D = 16) with K fragments from `ldmatrix`, P·V is `m16n8k16` over
-//    16 keys with V fragments from `ldmatrix.trans`. `wgmma` is not worth its
-//    64-row tile at k = 8.
-//  - float32 at any D: `oneshot_attention_f32_kernel`, one thread per q row,
-//    scalar FMAs on float32 tiles. It keeps full precision for the float32
-//    comparisons against the CPU and is off the bf16 main path.
+//  - bf16 with D = 8, 16, 32 or 128 (the cross-view decoder at D = 8; the
+//    others where a config's widths give them): `oneshot_attention_mma_kernel`.
+//    Eight warps own 16 q rows each; K and V of the (batch, head) lie in
+//    shared memory in chunks of 64 KB (the whole kv at N = 1600, D = 8: 51
+//    KB; 512 keys at D = 32, 128 at D = 128), brought by 16-byte `cp.async`
+//    and XOR-swizzled by 16-byte piece so that the eight rows one `ldmatrix`
+//    reads lie in eight bank groups. S is `mma.sync.m16n8k8` at D = 8 and
+//    D/16 steps of `m16n8k16` above, with K fragments from `ldmatrix`; P·V is
+//    `m16n8k16` over 16 keys into D/8 accumulator n-tiles, with V fragments
+//    from `ldmatrix.trans`. At D = 128 a thread holds 64 float32 accumulators
+//    and eight k-steps of Q fragments. `wgmma` is not worth its 64-row tile
+//    at k = 8.
+//  - float32 at any of those D: `oneshot_attention_f32_kernel`, one thread
+//    per q row (two at D = 128, each with half the row, so that q and the
+//    accumulator stay in registers), scalar FMAs on float32 tiles. It keeps
+//    full precision for the float32 comparisons against the CPU and is off
+//    the bf16 main path.
 // All read q/k/v in place with their batch and token strides, so the
 // (B,N,H,D)→(B·H,N,D) relayout of the TPU version, and the split of a fused
 // qkv projection, cost no copy. The bf16 kernels read 16-byte vectors: the
@@ -68,29 +76,44 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 // ------------------------------------------------------------------- float32
-constexpr int kRows = 64;   // q rows per block, one per thread
-constexpr int kTile = 64;   // kv rows per shared-memory tile
+constexpr int kRows = 64;   // q rows per block
 constexpr int kChunk = 16;  // keys per online-softmax update
 
+// Above D = 64 a q row is split over kSplit neighbouring threads, each with
+// kPart channels of q and of the accumulator (at most 64 a thread, which
+// keeps them in registers), and a tile holds fewer kv rows, so that K and V
+// fit the 48 KB of static shared memory.
 template <int D>
-__global__ void __launch_bounds__(kRows)
+struct F32Shape {
+  static constexpr int kSplit = D > 64 ? D / 64 : 1;
+  static constexpr int kPart = D / kSplit;
+  static constexpr int kTile = D > 64 ? 32 : 64;  // kv rows per shared-memory tile
+  static constexpr int kThreads = kRows * kSplit;
+};
+
+template <int D>
+__global__ void __launch_bounds__(F32Shape<D>::kThreads)
 oneshot_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, float* __restrict__ out, int nq, int nk,
                              int heads, long long q_bs, long long q_ts, long long k_bs,
                              long long k_ts, long long v_bs, long long v_ts, float scale) {
+  using S = F32Shape<D>;
+  constexpr int kPart = S::kPart, kTile = S::kTile;
   static_assert(D % 4 == 0, "head dim must be a multiple of 4");
   __shared__ __align__(16) float ks[kTile][D];
   __shared__ __align__(16) float vs[kTile][D];
 
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y % heads;
-  const int row = blockIdx.x * kRows + threadIdx.x;
+  const int row = blockIdx.x * kRows + threadIdx.x / S::kSplit;
+  const int c_lo = (threadIdx.x % S::kSplit) * kPart;  // this thread's channels
 
-  // Threads past the last row still stage tiles, so they load a valid row.
-  const float* qp = q + b * q_bs + (long long)min(row, nq - 1) * q_ts + h * D;
-  float qr[D], acc[D];
+  // Threads past the last row still stage tiles and take part in the
+  // shuffles, so they load a valid row.
+  const float* qp = q + b * q_bs + (long long)min(row, nq - 1) * q_ts + h * D + c_lo;
+  float qr[kPart], acc[kPart];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < kPart; ++d) {
     qr[d] = qp[d];
     acc[d] = 0.f;
   }
@@ -101,7 +124,7 @@ oneshot_attention_f32_kernel(const float* __restrict__ q, const float* __restric
   for (int t0 = 0; t0 < nk; t0 += kTile) {
     const int cnt = min(kTile, nk - t0);
     __syncthreads();  // the previous tile is fully consumed
-    for (int i = threadIdx.x; i < cnt * D; i += kRows) {
+    for (int i = threadIdx.x; i < cnt * D; i += S::kThreads) {
       const int j = i / D, d = i % D;
       ks[j][d] = kb[(long long)(t0 + j) * k_ts + d];
       vs[j][d] = vb[(long long)(t0 + j) * v_ts + d];
@@ -114,17 +137,20 @@ oneshot_attention_f32_kernel(const float* __restrict__ q, const float* __restric
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) {
         s[j] = -INFINITY;  // masked: keys past the tile's end
-        if (c0 + j < cnt) {
-          const float4* kr = reinterpret_cast<const float4*>(ks[c0 + j]);
+        if (c0 + j < cnt) {  // the same for every thread of the block
+          const float4* kr = reinterpret_cast<const float4*>(ks[c0 + j] + c_lo);
           float dot = 0.f;
 #pragma unroll
-          for (int d4 = 0; d4 < D / 4; ++d4) {
+          for (int d4 = 0; d4 < kPart / 4; ++d4) {
             const float4 k4 = kr[d4];
             dot = fmaf(qr[4 * d4 + 0], k4.x, dot);
             dot = fmaf(qr[4 * d4 + 1], k4.y, dot);
             dot = fmaf(qr[4 * d4 + 2], k4.z, dot);
             dot = fmaf(qr[4 * d4 + 3], k4.w, dot);
           }
+          // the row's parts, summed alike on each of its threads
+#pragma unroll
+          for (int o = 1; o < S::kSplit; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
           s[j] = dot * scale;
         }
         cmax = fmaxf(cmax, s[j]);
@@ -135,15 +161,15 @@ oneshot_attention_f32_kernel(const float* __restrict__ q, const float* __restric
       const float alpha = expf(m - m_new);
       l *= alpha;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
+      for (int d = 0; d < kPart; ++d) acc[d] *= alpha;
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) {
         if (c0 + j < cnt) {
           const float p = expf(s[j] - m_new);
           l += p;
-          const float4* vr = reinterpret_cast<const float4*>(vs[c0 + j]);
+          const float4* vr = reinterpret_cast<const float4*>(vs[c0 + j] + c_lo);
 #pragma unroll
-          for (int d4 = 0; d4 < D / 4; ++d4) {
+          for (int d4 = 0; d4 < kPart / 4; ++d4) {
             const float4 v4 = vr[d4];
             acc[4 * d4 + 0] = fmaf(p, v4.x, acc[4 * d4 + 0]);
             acc[4 * d4 + 1] = fmaf(p, v4.y, acc[4 * d4 + 1]);
@@ -158,9 +184,9 @@ oneshot_attention_f32_kernel(const float* __restrict__ q, const float* __restric
 
   if (row < nq) {
     const float inv = 1.f / l;
-    float* op = out + (((long long)b * nq + row) * heads + h) * D;
+    float* op = out + (((long long)b * nq + row) * heads + h) * D + c_lo;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d] * inv;
+    for (int d = 0; d < kPart; ++d) op[d] = acc[d] * inv;
   }
 }
 
@@ -487,7 +513,7 @@ oneshot_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_k,
   store_rows(o, l_lo, l_hi, out, b, h, heads, nq, r_lo, t);
 }
 
-// -------------------------------------------------------- bf16, D = 8 or 16
+// ------------------------------------------------- bf16, D = 8, 16, 32, 128
 constexpr int kMmaWarps = 8;                 // 16 q rows each
 constexpr int kMmaSmemBytes = 64 * 1024;     // K and V chunk together
 
@@ -521,21 +547,35 @@ __device__ __forceinline__ void mma_k8(float* c, const uint32_t* a, uint32_t b0)
       : "r"(a[0]), "r"(a[1]), "r"(b0));
 }
 
+// The shared-memory address of 16-byte piece `pc` of K/V row `row`, rows of
+// P pieces, XOR-swizzled within each 128 bytes: the eight rows one
+// `ldmatrix` 8x8 tile reads (eight consecutive keys at one piece) then lie in
+// eight different 16-byte bank groups, where unswizzled rows of 32, 64 or 256
+// bytes would put two, four or eight of them in one.
+template <int P>
+__device__ __forceinline__ uint32_t kv_piece(uint32_t base, int row, int pc) {
+  int sw = pc;
+  if constexpr (P >= 8) sw = pc ^ (row & 7);
+  else if constexpr (P > 1) sw = pc ^ ((row / (8 / P)) & (P - 1));
+  return base + static_cast<uint32_t>(row * P + sw) * 16u;
+}
+
 // Fragment layouts (g = lane / 4, t = lane % 4): A regs hold (row g | g+8,
 // cols 2t,2t+1 | 8+2t,9+2t); B regs (k = 2t,2t+1 | 8+2t,9+2t, n = g); C as in
 // `softmax_step`. A K or V row of D bf16 is D/8 pieces of 16 bytes, and one
 // `ldmatrix` 8x8 tile is eight such pieces: plain, a lane gets (key g, d
 // 2t,2t+1), the B fragment of Q·Kᵀ; transposed, (keys 2t,2t+1, d g), the B
 // fragment of P·V. `chunk` keys (a multiple of 64) lie in shared memory at a
-// time, K rows then V rows.
+// time, K rows then V rows, each swizzled by `kv_piece`.
 template <int D>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 oneshot_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, bf16* __restrict__ out, int nq, int nk,
                              int heads, long long q_bs, long long q_ts, long long k_bs,
                              long long k_ts, long long v_bs, long long v_ts, float c, int chunk) {
-  static_assert(D == 8 || D == 16, "head dim 8 or 16");
+  static_assert(D == 8 || D == 16 || D == 32 || D == 128, "head dim 8, 16, 32 or 128");
   constexpr int kPieces = D / 8, kRowBytes = 2 * D;
+  constexpr int kSteps = D == 8 ? 1 : D / 16;  // k-steps of Q·Kᵀ (m16n8k8 at D = 8, else k16)
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t ks = smem_u32(smem_raw), vs = ks + chunk * kRowBytes;
 
@@ -545,13 +585,21 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   const int r_lo = blockIdx.x * kMmaWarps * 16 + warp * 16 + g;
   const int r_hi = r_lo + 8;
 
+  // Q as A fragments, four registers a k16 step (two at D = 8); rows past nq are 0
   const bf16* qb = q + b * q_bs + h * D;
-  uint32_t qa[2 * kPieces];  // rows past nq are 0
-  qa[0] = r_lo < nq ? load_pair(qb + r_lo * q_ts + 2 * t) : 0u;
-  qa[1] = r_hi < nq ? load_pair(qb + r_hi * q_ts + 2 * t) : 0u;
-  if constexpr (D == 16) {
-    qa[2] = r_lo < nq ? load_pair(qb + r_lo * q_ts + 2 * t + 8) : 0u;
-    qa[3] = r_hi < nq ? load_pair(qb + r_hi * q_ts + 2 * t + 8) : 0u;
+  uint32_t qa[D == 8 ? 2 : 4 * kSteps];
+  if constexpr (D == 8) {
+    qa[0] = r_lo < nq ? load_pair(qb + r_lo * q_ts + 2 * t) : 0u;
+    qa[1] = r_hi < nq ? load_pair(qb + r_hi * q_ts + 2 * t) : 0u;
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const int col = 16 * kk + 2 * t;
+      qa[4 * kk + 0] = r_lo < nq ? load_pair(qb + r_lo * q_ts + col) : 0u;
+      qa[4 * kk + 1] = r_hi < nq ? load_pair(qb + r_hi * q_ts + col) : 0u;
+      qa[4 * kk + 2] = r_lo < nq ? load_pair(qb + r_lo * q_ts + col + 8) : 0u;
+      qa[4 * kk + 3] = r_hi < nq ? load_pair(qb + r_hi * q_ts + col + 8) : 0u;
+    }
   }
   float o[4 * kPieces];
 #pragma unroll
@@ -568,8 +616,8 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
       const int row = i / kPieces, pc = i % kPieces;
       const bool valid = row < cnt;
       const long long tok = valid ? c0 + row : 0;
-      cp_async16(ks + i * 16, kb + tok * k_ts + pc * 8, valid);
-      cp_async16(vs + i * 16, vb + tok * v_ts + pc * 8, valid);
+      cp_async16(kv_piece<kPieces>(ks, row, pc), kb + tok * k_ts + pc * 8, valid);
+      cp_async16(kv_piece<kPieces>(vs, row, pc), vb + tok * v_ts + pc * 8, valid);
     }
     cp_async_commit();
     cp_async_wait<0>();
@@ -583,17 +631,20 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
       if constexpr (D == 8) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {  // 32 keys: one tile per n-tile
-          ldmatrix_x4(f, ks + (s0 + 32 * half + lane) * kRowBytes);
+          ldmatrix_x4(f, kv_piece<1>(ks, s0 + 32 * half + lane, 0));
 #pragma unroll
           for (int j = 0; j < 4; ++j) mma_k8(&s[4 * (4 * half + j)], qa, f[j]);
         }
       } else {
 #pragma unroll
-        for (int jp = 0; jp < 4; ++jp) {  // 16 keys: tiles (keys 0-7 | 8-15) x (d 0-7 | 8-15)
+        for (int jp = 0; jp < 4; ++jp) {  // 16 keys: tiles (keys 0-7 | 8-15) x (d 0-7 | 8-15) of a k-step
           const int key = s0 + 16 * jp + (lane / 16) * 8 + lane % 8;
-          ldmatrix_x4(f, ks + key * kRowBytes + ((lane / 8) % 2) * 16);
-          mma_k16(&s[4 * (2 * jp)], qa, f[0], f[1]);
-          mma_k16(&s[4 * (2 * jp + 1)], qa, f[2], f[3]);
+#pragma unroll
+          for (int kk = 0; kk < kSteps; ++kk) {
+            ldmatrix_x4(f, kv_piece<kPieces>(ks, key, 2 * kk + (lane / 8) % 2));
+            mma_k16(&s[4 * (2 * jp)], &qa[4 * kk], f[0], f[1]);
+            mma_k16(&s[4 * (2 * jp + 1)], &qa[4 * kk], f[2], f[3]);
+          }
         }
       }
 
@@ -603,17 +654,20 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
       if constexpr (D == 8) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {  // 32 keys: two k-blocks of two tiles
-          ldmatrix_x4_trans(f, vs + (s0 + 32 * half + lane) * kRowBytes);
+          ldmatrix_x4_trans(f, kv_piece<1>(vs, s0 + 32 * half + lane, 0));
           mma_k16(o, pa[2 * half], f[0], f[1]);
           mma_k16(o, pa[2 * half + 1], f[2], f[3]);
         }
       } else {
 #pragma unroll
-        for (int kb2 = 0; kb2 < 4; ++kb2) {  // 16 keys: tiles (d 0-7 | 8-15) x (keys 0-7 | 8-15)
+        for (int kb2 = 0; kb2 < 4; ++kb2) {  // 16 keys: tiles (d 0-7 | 8-15) x (keys 0-7 | 8-15) of 16 channels
           const int key = s0 + 16 * kb2 + ((lane / 8) % 2) * 8 + lane % 8;
-          ldmatrix_x4_trans(f, vs + key * kRowBytes + (lane / 16) * 16);
-          mma_k16(&o[0], pa[kb2], f[0], f[1]);
-          mma_k16(&o[4], pa[kb2], f[2], f[3]);
+#pragma unroll
+          for (int dp = 0; dp < kPieces / 2; ++dp) {
+            ldmatrix_x4_trans(f, kv_piece<kPieces>(vs, key, 2 * dp + lane / 16));
+            mma_k16(&o[8 * dp], pa[kb2], f[0], f[1]);
+            mma_k16(&o[8 * dp + 4], pa[kb2], f[2], f[3]);
+          }
         }
       }
     }
@@ -650,7 +704,7 @@ struct Args {
 template <int D>
 cudaError_t launch_f32(const Args& a) {
   const dim3 grid((a.nq + kRows - 1) / kRows, a.batch * a.heads);
-  oneshot_attention_f32_kernel<D><<<grid, kRows, 0, a.stream>>>(
+  oneshot_attention_f32_kernel<D><<<grid, F32Shape<D>::kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out), a.nq, a.nk, a.heads, a.q_bs,
       a.q_ts, a.k_bs, a.k_ts, a.v_bs, a.v_ts, a.scale);
@@ -710,7 +764,8 @@ template <int D>
 cudaError_t launch_mma(const Args& a) {
   cudaError_t err = allow_dynamic_smem<D>(oneshot_attention_mma_kernel<D>, kMmaSmemBytes);
   if (err != cudaSuccess) return err;
-  // K and V of the whole (batch, head) if they fit, else chunks that fill the budget
+  // K and V of the whole (batch, head) if they fit, else chunks that fill the
+  // budget (a multiple of 64 keys at every D)
   const int cap = kMmaSmemBytes / (4 * D), whole = (a.nk + kStep - 1) / kStep * kStep;
   const int chunk = whole < cap ? whole : cap;
   const dim3 grid((a.nq + kMmaWarps * 16 - 1) / (kMmaWarps * 16), a.batch * a.heads);
@@ -723,7 +778,8 @@ cudaError_t launch_mma(const Args& a) {
 
 }  // namespace
 
-// q, k, v: (B, N, H, D) with the head and channel dims packed (strides D, 1);
+// q, k, v: (B, N, H, D), D in {8, 16, 32, 64, 128}, with the head and channel
+// dims packed (strides D, 1);
 // *_bs / *_ts are the batch and token strides in elements. For bf16 the
 // pointers must be 16-byte aligned, every stride a multiple of 8 and the
 // scale positive (the Python wrapper checks it). out: contiguous
@@ -741,8 +797,12 @@ extern "C" int gfnet_oneshot_attention(const void* q, const void* k, const void*
       return is_bf16 ? launch_mma<8>(a) : launch_f32<8>(a);
     case 16:
       return is_bf16 ? launch_mma<16>(a) : launch_f32<16>(a);
+    case 32:
+      return is_bf16 ? launch_mma<32>(a) : launch_f32<32>(a);
     case 64:
       return is_bf16 ? launch_wgmma(a) : launch_f32<64>(a);
+    case 128:
+      return is_bf16 ? launch_mma<128>(a) : launch_f32<128>(a);
     default:
       return cudaErrorInvalidValue;
   }

@@ -24,7 +24,9 @@ With `shard_for_mesh(mesh)` the matcher serves over a process group
 of at least as many pairs as ranks is padded by repeating its last pair and
 split by rows; each rank matches, samples and solves its rows with their
 pair keys, and the homographies are gathered. A smaller batch runs on every
-rank, with only the coarse correlation split over the ranks.
+rank, with only the coarse correlation split over the ranks. With
+`fsdp_vit=True` each rank also keeps only its slice of the ViT's large
+leaves.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from gfnet_tpu_torch.models.gfnet import GFNet
 from gfnet_tpu_torch.models.vit import VisionTransformer
 from gfnet_tpu_torch.ops.kde import kde
 from gfnet_tpu_torch.ops.resize import interpolate
+from gfnet_tpu_torch.parallel.mesh import shard_params
 from gfnet_tpu_torch.utils import jax_init, jax_random
 from gfnet_tpu_torch.utils.convert import jax_head_state, jax_vit_state
 
@@ -342,12 +345,16 @@ class GFNetMatcher:
         return self._solve(matches, hw_a, hw_b, idx)
 
     # ------------------------------------------------------ several devices
-    def shard_for_mesh(self, mesh) -> None:
+    def shard_for_mesh(self, mesh, fsdp_vit: bool = False) -> None:
         """Serve over `mesh` (`parallel.mesh.create_mesh`): every rank then
         calls `match` / `estimate_homography*` with the same request (the
-        JAX package's `shard_for_mesh`, with processes for devices). The
-        frozen ViT stays whole on every rank; sharding it is not ported."""
+        JAX package's `shard_for_mesh`, with processes for devices).
+        `fsdp_vit` shards the frozen ViT over the ranks, in place
+        (`parallel.mesh.shard_params`): each block all-gathers its weights
+        when it runs."""
         self.mesh = mesh
+        if fsdp_vit:
+            shard_params(mesh, self.vit)
 
     def _place_batch(self, n: int, *xs):
         """How a batch of `n` runs: (the inputs `xs` as this rank runs them,

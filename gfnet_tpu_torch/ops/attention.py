@@ -69,8 +69,10 @@ def streamed_attention_plain(q: Tensor, k: Tensor, v: Tensor, scale: float | Non
 
 
 class _FusedAttentionCUDA(torch.autograd.Function):
-    """K1 forward; the backward recomputes through the plain version, as the
-    JAX package pairs its kernel with an einsum backward
+    """K1 forward, at any head dim up to 128 (`kernels.oneshot_attention`
+    zero-pads those it is not instantiated at; above 128 it raises); the
+    backward recomputes through the plain version at the caller's head dim,
+    as the JAX package pairs its kernel with an einsum backward
     (`ops/attention.py:122-147`). It has no attention backward kernel."""
 
     @staticmethod

@@ -134,15 +134,42 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-ATTENTION_HEAD_DIMS = (8, 16, 64)
+ATTENTION_HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims K1 is instantiated at
+
+
+def attention_head_dim(d: int) -> int:
+    """The head dim K1 runs a head dim `d` at: the smallest of
+    `ATTENTION_HEAD_DIMS` that holds it. Above 128 it raises."""
+    for width in ATTENTION_HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"oneshot_attention: head dim {d} is above {ATTENTION_HEAD_DIMS[-1]}, "
+                     "the widest K1 takes")
+
+
+def pad_head_dim(fn, q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    """`fn(q, k, v, scale)` on q, k, v zero-padded along the head dim to
+    `attention_head_dim`, sliced back to D channels (contiguous). Zero
+    channels in q and k add nothing to a logit and those of v give zero
+    outputs, so the function is unchanged; `scale` is the caller's, from the
+    unpadded D. A head dim K1 is instantiated at passes through as it is."""
+    d = q.shape[-1]
+    width = attention_head_dim(d)
+    if width == d:
+        return fn(q, k, v, scale)
+    pad = lambda t: torch.nn.functional.pad(t, (0, width - d))
+    return fn(pad(q), pad(k), pad(v), scale)[..., :d].contiguous()
 
 
 def oneshot_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     """K1: softmax(q·kᵀ·scale)·v over (B, N, H, D) CUDA tensors → contiguous
-    (B, Nq, H, D). Takes float32 or bf16 and D in {8, 16, 64}; the head and
+    (B, Nq, H, D). Takes float32 or bf16 and any D up to 128: the kernels are
+    instantiated at D in `ATTENTION_HEAD_DIMS`, and another D runs them on
+    copies zero-padded to the next of those (`pad_head_dim`: one launch,
+    counted as one); above 128 it raises. At an instantiated D the head and
     channel dims must be packed (strides D, 1), the batch and token strides
     are free (a slice of a fused qkv projection is read in place). bf16 runs
-    on tensor cores (`wgmma` at D=64, `mma.sync` at D=8 and 16) and reads
+    on tensor cores (`wgmma` at D=64, `mma.sync` at the others) and reads
     16-byte vectors: its pointers must be 16-byte aligned, its batch and
     token strides multiples of 8 and its scale positive, or it raises."""
     _require_cuda("oneshot_attention", q, k, v)
@@ -154,7 +181,7 @@ def oneshot_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
         raise ValueError(f"oneshot_attention: q {tuple(q.shape)} vs kv {tuple(k.shape)}")
     if d not in ATTENTION_HEAD_DIMS:
-        raise ValueError(f"oneshot_attention: head dim {d} not in {ATTENTION_HEAD_DIMS}")
+        return pad_head_dim(oneshot_attention, q, k, v, scale)
     bf16 = q.dtype == torch.bfloat16
     if bf16 and not scale > 0:
         raise ValueError(f"oneshot_attention: bf16 needs a positive scale, got {scale}")

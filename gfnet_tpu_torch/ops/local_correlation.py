@@ -11,7 +11,10 @@ K2 (`ops/kernels.py`, `csrc/local_corr.cu`) forward and K3
 (`csrc/local_corr_bwd.cu`) for the gradient, which reaches the query only.
 CPU tensors take the plain `_local_correlation_patch` with target and flow
 detached; `local_corr_dq_plain` is K3's plain version. A shape the kernels
-cannot take raises.
+cannot take raises. `_local_correlation_gather` is the JAX package's plain
+gather form (`grid_sample` at each tap), and `local_correlation_multilevel`
+runs `local_correlation` over an average-pooled pyramid of the target; no
+shipped config reaches either.
 
 The kernels give each block a tile of neighbouring cells and stage the union
 of their windows in shared memory where it fits a box of the launch
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from gfnet_tpu_torch.ops import kernels
+from gfnet_tpu_torch.ops.sampler import grid_sample
 
 Tensor = torch.Tensor
 
@@ -41,6 +45,44 @@ def window_offsets(radius: int, h: int, w: int) -> np.ndarray:
     ox = np.linspace(-2 * r / w, 2 * r / w, 2 * r + 1)
     gy, gx = np.meshgrid(oy, ox, indexing="ij")
     return np.stack([gx, gy], axis=-1).reshape(-1, 2).astype(np.float32)
+
+
+def _local_correlation_gather(query: Tensor, target: Tensor, flow: Tensor, radius: int,
+                              chunk: int = 32) -> Tensor:
+    """The gather form (`gfnet_tpu/ops/local_correlation.py:45-68`): the
+    target bilinearly sampled (`grid_sample`, zeros padding) at flow +
+    `window_offsets`, `chunk` taps at a time, each dotted with the query /
+    √C → (B, G1, G2, (2r+1)²), in the query's dtype. The same function as
+    `_local_correlation_patch` and K2."""
+    _, _, _, c = query.shape
+    _, h, w, _ = target.shape
+    offs = torch.from_numpy(window_offsets(radius, h, w)).to(flow.device)
+    outs = []
+    for k0 in range(0, offs.shape[0], chunk):
+        pos = flow[:, :, :, None, :] + offs[None, None, None, k0:k0 + chunk]
+        samp = grid_sample(target, pos)  # (B, G1, G2, kb, C)
+        outs.append(torch.einsum("bijkc,bijc->bijk", samp, query) / float(np.sqrt(c)))
+    return torch.cat(outs, dim=-1)
+
+
+def target_pyramid(target: Tensor, num_levels: int) -> list[Tensor]:
+    """`num_levels` targets, each the previous one average-pooled 2 × 2
+    (B, H, W, C), the first the target itself."""
+    levels = [target]
+    for _ in range(num_levels - 1):
+        b, h, w, c = levels[-1].shape
+        levels.append(levels[-1].reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4)))
+    return levels
+
+
+def local_correlation_multilevel(query: Tensor, target: Tensor, flow: Tensor, radius: int,
+                                 num_levels: int) -> Tensor:
+    """`local_correlation` at each level of `target_pyramid`, concatenated
+    level-major → (B, G1, G2, num_levels · (2r+1)²)
+    (`gfnet_tpu/ops/local_correlation.py:71-85`): K2 on CUDA tensors, the
+    plain version on CPU tensors."""
+    return torch.cat([local_correlation(query, t, flow, radius) for t in target_pyramid(target, num_levels)],
+                     dim=-1)
 
 
 def _window_patches(target: Tensor, flow: Tensor, radius: int):

@@ -1,5 +1,6 @@
 """Several devices: one process a device over `torch.distributed`."""
 
-from gfnet_tpu_torch.parallel.mesh import Mesh, create_mesh, init_distributed, shard_batch
+from gfnet_tpu_torch.parallel.mesh import (Mesh, create_mesh, fsdp_param_sharding, init_distributed, shard_batch,
+                                           shard_params)
 
-__all__ = ["Mesh", "create_mesh", "init_distributed", "shard_batch"]
+__all__ = ["Mesh", "create_mesh", "fsdp_param_sharding", "init_distributed", "shard_batch", "shard_params"]

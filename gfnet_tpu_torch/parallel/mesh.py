@@ -14,17 +14,23 @@ A `Mesh` is the process group, its size, this process's rank and its device.
 environment (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`,
 `MASTER_PORT`) or from the JAX package's (`GFNET_COORDINATOR` as host:port,
 `GFNET_NUM_PROCESSES`, `GFNET_PROCESS_ID`, `gfnet_tpu/cli/train.py:58-69`).
-The frozen ViT stays whole on every rank: the JAX package's
-`fsdp_param_sharding` / `shard_params` are not ported yet.
+
+The frozen ViT can be sharded over the ranks (`shard_params`, the JAX
+package's FSDP rule of `fsdp_param_sharding`): each rank keeps its slice of
+every large leaf, and each block all-gathers its leaves just before it runs
+and frees them after, so at most one block's full weights are resident. The
+ViT is frozen and runs without gradient, so nothing is reduce-scattered.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import torch
 import torch.distributed as dist
+import torch.nn as nn
 
 Tensor = torch.Tensor
 
@@ -149,3 +155,135 @@ def shard_batch(mesh: Mesh, batch: dict) -> dict:
     """This rank's rows of every array of a batch that the mesh divides (the
     JAX package's `shard_batch`, where each process holds its own rows)."""
     return {k: v[mesh.rows(len(v))] for k, v in batch.items()}
+
+
+# torch 2.13 names all_gather_into_tensor all_gather_single and warns on the
+# old name; earlier releases (2.11) have only the old one
+_all_gather_flat = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def fsdp_param_sharding(mesh: Mesh, module_or_named_params, min_size: int = 2**16) -> dict[str, int | None]:
+    """The JAX package's FSDP rule (`gfnet_tpu/parallel/mesh.py:53-82`) on the
+    port's tensors: name → the axis a leaf is split on over the ranks, or
+    None for a leaf that stays whole. A leaf of at least `min_size` elements
+    is split on its largest axis that `mesh.size` divides (the first such
+    axis on ties); smaller leaves, and leaves with no such axis, stay whole.
+    Takes a module (its `named_parameters()`) or (name, tensor) pairs. The
+    JAX package holds the ViT's blocks stacked over depth, so a block leaf is
+    `depth` times larger there: at ViT-L and 2¹⁶ its qkv and fc1 biases
+    (24 × 3072, 24 × 4096) are split there and whole here (0.06% of the
+    ViT's bytes); the weights split alike."""
+    named = module_or_named_params.named_parameters() if isinstance(module_or_named_params, nn.Module) \
+        else module_or_named_params
+    spec = {}
+    for name, x in named:
+        axis = None
+        if x.numel() >= min_size:
+            for i, d in enumerate(x.shape):
+                if d % mesh.size == 0 and (axis is None or d > x.shape[axis]):
+                    axis = i
+        spec[name] = axis
+    return spec
+
+
+class _ShardedLeaves:
+    """The split leaves of one module: this rank's slices, packed into one
+    flat buffer that each leaf's `.data` views between calls. `gather()`
+    all-gathers the buffer in one collective and points every leaf at its
+    full tensor; `free()` points them back at the slices, so the full
+    tensors go as soon as the module's forward is done."""
+
+    def __init__(self, mesh: Mesh, leaves: list):
+        self.mesh = mesh
+        self.leaves = []  # (parameter, axis, full shape, offset in the buffer, slice shape)
+        slices, offset = [], 0
+        for p, axis in leaves:
+            part = p.shape[axis] // mesh.size
+            piece = p.detach().narrow(axis, mesh.rank * part, part)
+            self.leaves.append((p, axis, tuple(p.shape), offset, tuple(piece.shape)))
+            slices.append(piece.reshape(-1))
+            offset += piece.numel()
+        if len({t.dtype for t in slices}) != 1:
+            raise ValueError("shard_params: the split leaves of one module must share a dtype")
+        self.flat = torch.cat(slices)  # a copy: the full tensors go with the last reference to them
+        self.gathers = 0
+        self.free()
+
+    def gather(self) -> None:
+        n = self.mesh.size
+        # outside inference mode, so that the leaves stay normal tensors
+        with torch.inference_mode(False), torch.no_grad():
+            out = torch.empty(n * self.flat.numel(), dtype=self.flat.dtype, device=self.flat.device)
+            _all_gather_flat(out, self.flat)
+            ranks = out.view(n, -1)
+            for p, axis, full, offset, shape in self.leaves:
+                pieces = ranks[:, offset:offset + math.prod(shape)].reshape(n, *shape)
+                p.data = pieces.movedim(0, axis).reshape(full)
+        self.gathers += 1
+
+    def free(self) -> None:
+        for p, _, _, offset, shape in self.leaves:
+            p.data = self.flat[offset:offset + math.prod(shape)].view(shape)
+
+
+@dataclasses.dataclass
+class FSDPState:
+    """What `shard_params` did to a module: the mesh, the split axis of
+    each leaf (`fsdp_param_sharding`'s spec), and one `_ShardedLeaves` for
+    each module that gathers before it runs (module name → group)."""
+
+    mesh: Mesh
+    spec: dict
+    groups: dict
+
+    @property
+    def gathers(self) -> int:
+        """All-gathers run so far, one for each module call."""
+        return sum(g.gathers for g in self.groups.values())
+
+
+def _refuse_state_dict(module, prefix, keep_vars) -> None:
+    raise RuntimeError("this module's parameters are split over the ranks (parallel.mesh.shard_params): "
+                       "its state_dict would hold this rank's slices only")
+
+
+def shard_params(mesh: Mesh, vit: nn.Module, min_size: int = 2**16) -> nn.Module:
+    """Shard the frozen ViT over the ranks of `mesh`, in place, by
+    `fsdp_param_sharding`'s rule; returns it. Each rank keeps its slice of
+    every split leaf and frees the full tensors. A forward pre-hook on each
+    block of `vit.blocks`, on each other module that holds a split leaf (the
+    patch embedding), and on `vit` itself for its own leaves (the position
+    embedding) all-gathers that module's leaves in one collective, and a
+    forward hook frees them again: at most one block's full weights are
+    resident besides the ViT's own leaves. Every rank runs the ViT together,
+    on its own rows. The ViT runs without gradient, so nothing is
+    reduce-scattered. `state_dict()` of a sharded module raises rather than
+    hand out slices. A ViT already sharded over `mesh` is returned as it is."""
+    done = getattr(vit, "fsdp", None)
+    if done is not None:
+        if done.mesh != mesh:
+            raise ValueError("shard_params: the ViT is already sharded over another mesh")
+        return vit
+    spec = fsdp_param_sharding(mesh, vit, min_size)
+    owners: dict[str, list] = {}
+    for name, axis in spec.items():
+        if axis is None:
+            continue
+        parts = name.split(".")
+        if parts[0] == "blocks":  # a block gathers all its leaves at once
+            owner = ".".join(parts[:2])
+        else:
+            owner = ".".join(parts[:-1])
+        owners.setdefault(owner, []).append((vit.get_parameter(name), axis))
+    groups = {}
+    for owner, leaves in owners.items():
+        module = vit.get_submodule(owner)
+        group = _ShardedLeaves(mesh, leaves)
+        module.register_forward_pre_hook(lambda mod, args, g=group: g.gather())
+        module.register_forward_hook(lambda mod, args, out, g=group: g.free())
+        module.register_state_dict_pre_hook(_refuse_state_dict)
+        groups[owner] = group
+    if "" not in groups:
+        vit.register_state_dict_pre_hook(_refuse_state_dict)
+    vit.fsdp = FSDPState(mesh, spec, groups)
+    return vit

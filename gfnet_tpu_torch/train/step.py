@@ -19,7 +19,9 @@ gradients of the replicated loss into each rank's share, so each rank holds
 `DistributedDataParallel` would average too, but it starts its reductions
 inside the backward and over buckets of its own, where the order against
 the forward's own collectives in recomputed (checkpointed) blocks is not
-this code's to choose. The JAX step's `fsdp_vit` is not ported yet.
+this code's to choose. With `fsdp_vit` the frozen ViT is sharded over the
+ranks (`parallel.mesh.shard_params`): each block all-gathers its weights
+before it runs and frees them after, and the step is otherwise unchanged.
 
 Modules are named as the JAX package's top-level parameter groups, so
 `freeze`, `module_clip` and `module_spike_zero` take the same names in both:
@@ -36,6 +38,7 @@ import torch.nn as nn
 
 from gfnet_tpu_torch.matcher.api import imagenet_normalize
 from gfnet_tpu_torch.models.common import sync_batch_norms
+from gfnet_tpu_torch.parallel.mesh import shard_params
 from gfnet_tpu_torch.train.loss import RobustLoss
 from gfnet_tpu_torch.train.state import TrainState, global_norm
 
@@ -66,6 +69,8 @@ def make_train_step(
     loss: RobustLoss,
     mesh=None,
     symmetric: bool = False,
+    fsdp_vit: bool = False,
+    fsdp_min_size: int = 2**16,
     freeze: tuple[str, ...] = (),
     module_clip: dict[str, float] | None = None,
     module_spike_zero: dict[str, float] | None = None,
@@ -74,6 +79,9 @@ def make_train_step(
 
     matcher: GFNetMatcher (provides the frozen ViT, the device and dtype).
     mesh: the ranks the global batch is split over, or None for one process.
+    fsdp_vit: shard the matcher's frozen ViT over the mesh, in place
+    (`parallel.mesh.shard_params` with `fsdp_min_size`): the matcher then
+    runs the sharded ViT, every rank together. Needs a mesh.
     Returns step(state, batch) -> (state, metrics). batch is a dict with
     im_A/im_B (B, H, W, 3), imagenet-normalized floats or raw uint8, and
     H_s2t (B, 3, 3), as numpy arrays or tensors: this rank's rows under a
@@ -82,6 +90,10 @@ def make_train_step(
     in train mode during the step and back in eval mode after it, so a
     matcher that shares the head keeps matching with running statistics.
     """
+    if fsdp_vit:
+        if mesh is None:
+            raise ValueError("fsdp_vit shards the ViT over a mesh: pass mesh=")
+        shard_params(mesh, matcher.vit, fsdp_min_size)
     vit, device = matcher.vit, matcher.device
 
     def step_fn(state: TrainState, batch: dict[str, Any]) -> tuple[TrainState, dict]:

@@ -37,6 +37,10 @@ def cuda_device():
     (1, 77, 130, 2, 8), (1, 200, 2100, 1, 8),        # nq != nk; kv in two chunks at D=8
     (1, 7, 7, 2, 64), (1, 7, 7, 2, 8),               # below one tile
     (16, 1025, 1025, 16, 64),                        # more blocks than one wave holds
+    (2, 1024, 1024, 2, 32), (2, 1024, 1024, 1, 128),  # nhead 2 over 64 channels; nhead 1 over 128
+    (1, 130, 600, 2, 32), (1, 1000, 1090, 2, 128),    # kv in several shared-memory chunks
+    (1, 7, 7, 2, 128), (1, 77, 130, 3, 32),           # below one tile; nq != nk
+    (2, 1024, 1024, 8, 12), (1, 130, 77, 2, 20), (1, 200, 300, 2, 100),  # padded to 16, 32, 128
 ])
 def test_oneshot_attention_matches_plain(cuda_device, dtype, b, n, nk, h, d):
     gen = torch.Generator(cuda_device).manual_seed(0)
@@ -50,7 +54,7 @@ def test_oneshot_attention_matches_plain(cuda_device, dtype, b, n, nk, h, d):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("d", [64, 8])
+@pytest.mark.parametrize("d", [64, 8, 32, 128, 12])
 def test_oneshot_attention_reads_strided_qkv(cuda_device, d):
     """q, k, v as slices of one fused projection, read in place."""
     gen = torch.Generator(cuda_device).manual_seed(1)
@@ -61,7 +65,8 @@ def test_oneshot_attention_reads_strided_qkv(cuda_device, d):
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("b,n,nk,h,d", [(2, 1601, 1601, 16, 64), (2, 1600, 1600, 8, 8), (1, 130, 77, 2, 16)])
+@pytest.mark.parametrize("b,n,nk,h,d", [(2, 1601, 1601, 16, 64), (2, 1600, 1600, 8, 8), (1, 130, 77, 2, 16),
+                                         (2, 1024, 1024, 2, 32), (1, 300, 700, 1, 128)])
 def test_oneshot_attention_matches_its_streamed_plain_version(cuda_device, b, n, nk, h, d):
     """The bf16 kernels against the PyTorch function that repeats their
     schedule in bf16: closer than against the float32 reference."""
@@ -85,6 +90,21 @@ def test_oneshot_attention_refuses_misaligned_bf16_d64(cuda_device, d):
     ok = torch.zeros((2, 40, 2, d), dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="positive scale"):
         kernels.oneshot_attention(ok, ok, ok, 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_oneshot_attention_pads_a_head_dim_in_one_launch_and_refuses_above_128(cuda_device, dtype):
+    """D = 12 runs the D = 16 kernel on zero-padded copies, counted as one
+    launch; D = 129 raises with the limit in the message."""
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    q, k, v = (torch.randn((1, 64, 2, 12), generator=gen, device=cuda_device).to(dtype) for _ in range(3))
+    before = kernels.oneshot_attention.launches
+    got = kernels.oneshot_attention(q, k, v, 0.3)
+    assert kernels.oneshot_attention.launches == before + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    wide = torch.zeros((1, 8, 1, 129), dtype=dtype, device=cuda_device)
+    with pytest.raises(ValueError, match="above 128"):
+        kernels.oneshot_attention(wide, wide, wide, 0.1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -97,6 +97,32 @@ def test_streamed_attention_is_the_plain_function():
                                scaled_dot_product_attention(q, k, v, 0.4), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("d", [12, 32, 128, 20, 100])
+def test_pad_head_dim_equals_the_unpadded_plain_version(d):
+    """K1's head-dim padding (`kernels.pad_head_dim`, which the CUDA wrapper
+    runs before a launch) on the plain version: D = 12, 20 and 100 are
+    zero-padded to 16, 32 and 128, D = 32 and 128 pass through. At D = 12
+    also against the Pallas kernel, which takes any head dim. float32, the
+    padded sums only add zeros: a sound run read at most 1.2e-7."""
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.normal(0, 1, (1, 40, 2, d)).astype(np.float32) for _ in range(3))
+    scale = d**-0.5
+    got = kernels.pad_head_dim(scaled_dot_product_attention, T(q), T(k), T(v), scale)
+    assert got.shape == (1, 40, 2, d)
+    assert got.is_contiguous() or d in kernels.ATTENTION_HEAD_DIMS
+    torch.testing.assert_close(got, scaled_dot_product_attention(T(q), T(k), T(v), scale), rtol=1e-6, atol=1e-6)
+    if d == 12:
+        want = oneshot_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale, interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_attention_head_dim_pads_up_and_refuses_above_128():
+    assert [kernels.attention_head_dim(d) for d in (1, 8, 12, 16, 24, 33, 64, 96, 128)] == \
+        [8, 8, 16, 16, 32, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="above 128"):
+        kernels.attention_head_dim(129)
+
+
 def test_fused_attention_takes_plain_version_on_cpu():
     rng = np.random.default_rng(2)
     q, k, v = (T(rng.normal(0, 1, (1, 33, 2, 8))) for _ in range(3))

@@ -5,6 +5,8 @@ Tolerances: 1e-5..1e-4 absolute where both sides do the same float32
 arithmetic in another summation order; looser ones say why beside them.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,9 +22,13 @@ from gfnet_tpu.ops import sampler as jsamp
 from gfnet_tpu_torch.core import geometry as tgeo
 from gfnet_tpu_torch.core import homography as thom
 from gfnet_tpu_torch.ops import correlation as tcorr
+from gfnet_tpu_torch.ops import local_correlation as tlc
 from gfnet_tpu_torch.ops.kde import kde as torch_kde
 from gfnet_tpu_torch.ops import resize as tres
 from gfnet_tpu_torch.ops import sampler as tsamp
+
+# the module, which `gfnet_tpu.ops` shadows with its function of the same name
+jlc = importlib.import_module("gfnet_tpu.ops.local_correlation")
 
 
 def T(a):
@@ -181,6 +187,51 @@ def test_grid_sample_matches_jax():
     grid = rng.uniform(-1.2, 1.2, (2, 7, 9, 2)).astype(np.float32)
     np.testing.assert_allclose(N(tsamp.grid_sample(T(img), T(grid))),
                                N(jsamp.grid_sample(jnp.asarray(img), jnp.asarray(grid))), atol=1e-5)
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_grid_sample_padding_modes_match_jax(padding_mode, align_corners):
+    """Points out to ±1.6, a third of them off the map, against JAX's
+    `_grid_sample_base` (its lowering for "border"): the edge pixel or zero
+    there, float32, the corner weights in another order (≤ 1e-6)."""
+    rng = np.random.default_rng(19)
+    img = rng.normal(0, 1, (2, 9, 12, 3)).astype(np.float32)
+    grid = rng.uniform(-1.6, 1.6, (2, 5, 8, 2)).astype(np.float32)
+    got = tsamp.grid_sample(T(img), T(grid), align_corners, padding_mode)
+    want = jsamp._grid_sample_base(jnp.asarray(img), jnp.asarray(grid), align_corners, padding_mode)
+    np.testing.assert_allclose(N(got), N(want), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="padding_mode"):
+        tsamp.grid_sample(T(img), T(grid), align_corners, "reflection")
+
+
+def _local_corr_inputs(rng, g=6, h=16, w=16, c=8):
+    q = rng.normal(0, 1, (2, g, g, c)).astype(np.float32)
+    t = rng.normal(0, 1, (2, h, w, c)).astype(np.float32)
+    flow = rng.uniform(-1.1, 1.1, (2, g, g, 2)).astype(np.float32)  # some windows off the map
+    return q, t, flow
+
+
+def test_local_correlation_gather_matches_jax():
+    """The gather form at r = 3 (49 taps: two chunks of 32) against JAX's
+    and against the patch form, float32 (≤ 1e-5)."""
+    q, t, flow = _local_corr_inputs(np.random.default_rng(20), h=10, w=12)
+    got = tlc._local_correlation_gather(T(q), T(t), T(flow), 3)
+    want = jlc._local_correlation_gather(jnp.asarray(q), jnp.asarray(t), jnp.asarray(flow), 3)
+    assert got.shape == (2, 6, 6, 49)
+    np.testing.assert_allclose(N(got), N(want), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(N(got), N(tlc._local_correlation_patch(T(q), T(t), T(flow), 3)), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("levels", [1, 3])
+def test_local_correlation_multilevel_matches_jax(levels):
+    """Over the average-pooled target pyramid (16² → 8² → 4²), level-major,
+    float32 (≤ 1e-5); on the CPU each level takes the plain version."""
+    q, t, flow = _local_corr_inputs(np.random.default_rng(21))
+    got = tlc.local_correlation_multilevel(T(q), T(t), T(flow), 2, levels)
+    want = jlc.local_correlation_multilevel(jnp.asarray(q), jnp.asarray(t), jnp.asarray(flow), 2, levels)
+    assert got.shape == (2, 6, 6, 25 * levels)
+    np.testing.assert_allclose(N(got), N(want), rtol=0, atol=1e-5)
 
 
 def test_correlation_and_flow_init_match_jax():

@@ -15,7 +15,10 @@ JAX package on a two-device mesh of the virtual CPU devices that
     B=1 (latency mode, the coarse correlation split), against one process
     under the same key;
   - `cli.train.main([... "--multihost" ...])`: two steps, rank 0 writes the
-    checkpoints, both ranks restore them.
+    checkpoints, both ranks restore them;
+  - the frozen ViT sharded over the ranks (`fsdp_vit`, at a `min_size` of
+    1024): the split leaves against JAX's `fsdp_param_sharding`, the bytes a
+    rank holds, the train step and serving against the unsharded ones.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ def corr_inputs():
 
 
 SERVE_KEY = np.array([0, 42], np.uint32)
+FSDP_MIN_SIZE = 1024
 
 
 def step_head_vars() -> dict:
@@ -82,20 +86,27 @@ def step_head_vars() -> dict:
     return go(jax_head_params(tiny_test_config(), 0))
 
 
-def port_step(mesh, batch):
-    """One train step of the tiny port matcher (ViT from seed 0, the jittered
-    head), clip out of reach (so `.grad` keeps the raw combined gradients):
-    (metrics, grads, running statistics, parameters after the step)."""
+def step_matcher():
+    """The tiny port matcher of the train steps: ViT from seed 0, the jittered head."""
     from gfnet_tpu_torch.matcher import GFNetMatcher
+    from gfnet_tpu_torch.utils.convert import flax_to_torch_head
+
+    return GFNetMatcher(tiny_test_config(), device="cpu", dtype=torch.float32, seed=0,
+                        head_state=flax_to_torch_head(step_head_vars()))
+
+
+def port_step(mesh, batch, m=None, **step_kw):
+    """One train step of `m` (by default `step_matcher()`), clip out of
+    reach (so `.grad` keeps the raw combined gradients), `step_kw` to
+    `make_train_step`: (metrics, grads, running statistics, parameters
+    after the step)."""
     from gfnet_tpu_torch.train.loss import RobustLoss
     from gfnet_tpu_torch.train.state import create_train_state
     from gfnet_tpu_torch.train.step import make_train_step
-    from gfnet_tpu_torch.utils.convert import flax_to_torch_head
 
-    m = GFNetMatcher(tiny_test_config(), device="cpu", dtype=torch.float32, seed=0,
-                     head_state=flax_to_torch_head(step_head_vars()))
+    m = m or step_matcher()
     state = create_train_state(m.head, TrainConfig(grad_clip_norm=1e30), BATCH)
-    state, metrics = make_train_step(m, RobustLoss(im_size=RES), mesh)(state, batch)
+    state, metrics = make_train_step(m, RobustLoss(im_size=RES), mesh, **step_kw)(state, batch)
     return ({k: float(v) for k, v in metrics.items()},
             {k: p.grad.clone() for k, p in m.head.named_parameters()},
             {k: v.clone() for k, v in m.head.named_buffers()},
@@ -111,7 +122,7 @@ def _ranks(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
     from gfnet_tpu_torch.cli import train as cli_train
     from gfnet_tpu_torch.matcher import GFNetMatcher
     from gfnet_tpu_torch.ops.correlation import corr_volume_flow_sharded
-    from gfnet_tpu_torch.parallel import init_distributed, shard_batch
+    from gfnet_tpu_torch.parallel import init_distributed, shard_batch, shard_params
     from gfnet_tpu_torch.train.checkpoint import Checkpointer
     from gfnet_tpu_torch.train.state import create_train_state
 
@@ -121,6 +132,19 @@ def _ranks(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
     local = shard_batch(mesh, batch)
     out["local_H"] = local["H_s2t"]
     out["step"] = port_step(mesh, local)
+    # the same step with the ViT sharded: at 2^16 nothing of the tiny ViT is
+    # split, so at 1024 (its weights, patch and position embeddings)
+    fm = step_matcher()
+    full = {k: p.numel() * p.element_size() for k, p in fm.vit.named_parameters()}
+    out["step_fsdp"] = port_step(mesh, local, fm, fsdp_vit=True, fsdp_min_size=FSDP_MIN_SIZE)
+    held = {k: p.numel() * p.element_size() for k, p in fm.vit.named_parameters()}
+    out["fsdp"] = {"spec": fm.vit.fsdp.spec, "full_bytes": full, "held_bytes": held,
+                   "gathers_per_step": fm.vit.fsdp.gathers}
+    try:
+        fm.vit.state_dict()
+        out["fsdp"]["state_dict"] = "handed out"
+    except RuntimeError as e:
+        out["fsdp"]["state_dict"] = str(e)
 
     f0, f1 = corr_inputs()
     out["corr"] = corr_volume_flow_sharded(f0, f1, mesh)
@@ -130,6 +154,10 @@ def _ranks(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
     m.shard_for_mesh(mesh)
     out["serve_b3"] = m.estimate_homography_batched(a, b, 300, key=SERVE_KEY)
     out["match_b3"] = m.match(a, b)
+    fm = GFNetMatcher(tiny_test_config(), device="cpu", dtype=torch.float32, seed=0)
+    shard_params(mesh, fm.vit, FSDP_MIN_SIZE)
+    fm.shard_for_mesh(mesh, fsdp_vit=True)  # keeps the ViT sharded at 1024
+    out["serve_b3_fsdp"] = fm.estimate_homography_batched(a, b, 300, key=SERVE_KEY)
     calls = []
     real = gfnet_module.corr_volume_flow_sharded
     gfnet_module.corr_volume_flow_sharded = lambda *args: calls.append(1) or real(*args)
@@ -337,3 +365,60 @@ def test_multihost_cli_trains_checkpoints_on_rank0_and_both_restore(two_ranks):
             assert torch.equal(r["restored"][k], v), k
     for k, v in r0["head"].items():
         assert torch.equal(r1["head"][k], v), k
+
+
+# ---------------------------------------------------------------- FSDP ViT
+def _jax_fsdp_split(mesh_size: int, min_size: int) -> dict:
+    """Torch name → whether JAX's `fsdp_param_sharding` splits the tiny
+    ViT's leaf on a mesh of `mesh_size`, over the parameter shapes of
+    `jax.eval_shape` (nothing is compiled), carried to the port's names by
+    the weight bridge on 0/1 arrays; and JAX's bytes a rank holds."""
+    import jax
+    import jax.numpy as jnp
+
+    from gfnet_tpu.config import tiny_test_config as jax_tiny_config
+    from gfnet_tpu.models.vit import VisionTransformer as JViT
+    from gfnet_tpu.parallel.mesh import create_mesh, fsdp_param_sharding
+    from gfnet_tpu_torch.utils.convert import flax_to_torch_vit
+
+    vit = JViT(jax_tiny_config().dino, dtype=jnp.float32)
+    shapes = jax.eval_shape(lambda: vit.init(jax.random.PRNGKey(0), jnp.zeros((1, RES, RES, 3))))["params"]
+    spec = fsdp_param_sharding(create_mesh(mesh_size), shapes, min_size=min_size)
+    split = jax.tree_util.tree_map(lambda sh: any(a is not None for a in sh.spec), spec)
+    flags = jax.tree_util.tree_map(lambda s, x: np.full(x.shape, float(s), np.float32), split, shapes)
+    per_rank = sum(x.size * x.dtype.itemsize // (mesh_size if s else 1) for s, x in
+                   zip(jax.tree_util.tree_leaves(split), jax.tree_util.tree_leaves(shapes)))
+    named = {k: bool(v.flatten()[0]) for k, v in flax_to_torch_vit(flags).items()}
+    return named, per_rank
+
+
+def test_fsdp_splits_the_leaves_jax_splits_and_a_rank_holds_its_share(two_ranks):
+    """The port's `fsdp_param_sharding` on the tiny ViT splits the leaves
+    JAX's splits on a two-device mesh (the weights, patch and position
+    embeddings; biases, norms and LayerScales stay whole), and after a
+    sharded step each rank holds half of each split leaf, exactly JAX's
+    bytes a rank. A sharded ViT refuses `state_dict()`."""
+    want, jax_per_rank = _jax_fsdp_split(2, FSDP_MIN_SIZE)
+    for r in two_ranks:
+        f = r["fsdp"]
+        assert {k: v is not None for k, v in f["spec"].items()} == want
+        split = [k for k, v in want.items() if v]
+        assert len(split) == 10, split  # 4 weights in each of 2 blocks, the patch and position embeddings
+        held = sum(f["held_bytes"][k] for k in split) / sum(f["full_bytes"][k] for k in split)
+        assert held <= 0.55, held
+        assert sum(f["held_bytes"].values()) == jax_per_rank
+        assert f["gathers_per_step"] == 4  # the ViT, its patch embedding and 2 blocks, once each
+        assert "split over the ranks" in f["state_dict"]
+
+
+def test_fsdp_step_and_serving_equal_the_unsharded_ones(two_ranks):
+    """The all-gathers rebuild the same weights: the two-rank step with
+    `fsdp_vit=True` equals the one without bit for bit (metrics, gradients,
+    running statistics, parameters after the step), and serving with a
+    sharded ViT gives the same H bit for bit."""
+    for r in two_ranks:
+        for got, want in zip(r["step_fsdp"], r["step"]):
+            assert sorted(got) == sorted(want)
+            for k, v in want.items():
+                assert (got[k] == v) if isinstance(v, float) else torch.equal(got[k], v), k
+        assert torch.equal(r["serve_b3_fsdp"], r["serve_b3"])
