@@ -13,9 +13,12 @@ Phases, one JSON line each:
   3. K1 (oneshot_attention) against its plain version at every main-path
      attention shape, bf16, with timings (kernel, plain, SDPA), then on slices
      of a fused qkv projection as the ViT hands them over, against the plain
-     version that repeats the kernels' schedule, then at the head dims a
-     config can give (32, 128, and 12 zero-padded to 16) and the ViT at 1120²
-     (kv 6401), each in bf16 and float32, and the host's cost of one launch;
+     version that repeats the kernels' schedule, then the main-path shapes in
+     float32 (three TF32 passes, held to their own gate), then at the head
+     dims a config can give (32, 128, 256, 320 in two column groups, and 12
+     zero-padded to 16) and the ViT at 1120² (kv 6401), each in bf16 and
+     float32, D = 128 at B = 16 (no kv split), and the host's cost of one
+     launch;
   4. K2 (local_corr) against its plain version at every main-path shape, on
      a homography flow (the refiners' smooth flow: tiles stage their windows
      in shared memory) and a random one (the worst case: no tile stages),
@@ -23,7 +26,8 @@ Phases, one JSON line each:
      and on the homography flow also with staging off (a box of one window);
      then a flow where every tile stages and one that mixes both branches
      (also against the plain version of the kernel's schedule), exact zeros
-     for far-out-of-range and NaN flow, and the host's cost of a launch;
+     for far-out-of-range and NaN flow, the host's cost of a launch, and K2
+     and K3 at C = 12 in bf16 (zero-padded to 16 by `local_correlation`);
   5. the tiny config's `match()` on CUDA (kernels) against the CPU (plain
      versions), float32, same weights (seeded ViT, trained tiny head) and
      images;
@@ -37,6 +41,10 @@ Phases, one JSON line each:
      pass 2, sample + solve) timed alone and profiled once for its device
      time, busy share and top kernels, and how K2 tiles the refiners' own
      flows (share of staged tiles per launch);
+  flagship_f32: the flagship in float32 (the JAX package's
+     `GFNetMatcher(cfg, dtype=jnp.float32)`), B = 1, one pair, TF32 off:
+     `match()` on the card against the same weights on the CPU, and each
+     pass's ms and K1 launches beside the bf16 matcher's;
   accuracy: the evaluation path on that matcher: `eval_pairs(100, 448, 0.3,
      seed=1234)` same-modal and cross-modal, made on the card, through
      `HomographyBenchmark` at batch 4 with each pair under its key of the
@@ -116,6 +124,12 @@ SPIN_CYCLES = 10_000_000  # ~5 ms: the card spins while the host queues the call
 # 1% reads 1.27e-2 at (2,1601,16,64) and 3.4e-2 at (2,1600,8,8), the last 64
 # keys dropped 0.22 and 0.27, a V tile taken one ring stage late 0.59 and 0.99.
 K1_ATOL = 3e-3
+# K1 in float32 (three TF32 passes) against the float32 plain version: the
+# order of float32 sums and ~2^-22 of each product. Sound runs read at most
+# 1.97e-6 (at (2,1600,8,8)); a single TF32 pass (q, k, v rounded to TF32
+# first: `scripts/plant_faults_torch.py k1`) reads 1.28e-4 (kv 6401) to
+# 8.89e-4 (D=8).
+K1_F32_ATOL = 2e-5
 # K1 against the plain version that repeats its schedule, both bf16: the two
 # differ by the order of float32 sums and the last bit of `ex2`, so mostly by
 # one rounding of the bf16 output (2^-8 relative). Sound runs read at most 2.4e-3.
@@ -249,7 +263,7 @@ def phase_k1(torch, exp_rate: float) -> dict:
     from gfnet_tpu_torch.ops import kernels
     from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, scaled_dot_product_attention,
                                                streamed_attention_plain)
-    from gfnet_tpu_torch.utils.profiling import PEAK_BF16_FLOPS, PEAK_F32_FLOPS, bound
+    from gfnet_tpu_torch.utils.profiling import PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_TF32_FLOPS, bound
 
     gen = torch.Generator("cuda").manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -262,15 +276,21 @@ def phase_k1(torch, exp_rate: float) -> dict:
               (16, 1025, 16, 64, 64**-0.5),
               (16, 1024, 8, 8, entropy_invariant_scale(8, 1024, 1024))]
     # head dims a config can give the cross-view decoder (nhead 2 over 64
-    # channels: D=32; nhead 1 over 128: D=128; D=12, zero-padded to 16), and
-    # the ViT at 1120² (kv 6401, past the 4096 where the JAX package hands
-    # over to the library's flash kernel), each in bf16 and float32
+    # channels: D=32; nhead 1 over 128, 256, 320: D=128, 256 and 320, the
+    # last in two column groups; D=12, zero-padded to 16), and the ViT at
+    # 1120² (kv 6401, past the 4096 where the JAX package hands over to the
+    # library's flash kernel), each in bf16 and float32
     other = [(2, 1024, 2, 32, 32**-0.5), (2, 1024, 1, 128, 128**-0.5), (2, 1024, 8, 12, 12**-0.5),
-             (1, 6401, 16, 64, 64**-0.5)]
+             (1, 6401, 16, 64, 64**-0.5), (2, 1024, 1, 256, 256**-0.5), (2, 1024, 1, 320, 320**-0.5)]
     # the six shapes contiguous, then the two ViT shapes as slices of a fused
-    # qkv projection (token stride 3·H·D), which is how the ViT calls K1
+    # qkv projection (token stride 3·H·D), which is how the ViT calls K1; the
+    # six in float32 (the matcher built with dtype=torch.float32, and `learn`);
+    # D=128 with many blocks (no kv split)
     cases = ([(shape, False, bf16) for shape in shapes] + [(shape, True, bf16) for shape in shapes[:2]]
-             + [(shape, False, dt) for shape in other for dt in (bf16, f32)])
+             + [(shape, False, f32) for shape in shapes]
+             + [(shape, False, dt) for shape in other for dt in (bf16, f32)]
+             + [((16, 1024, 1, 128, 128**-0.5), False, bf16)])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for (b, n, h, d, scale), fused, dtype in cases:
         if fused:
@@ -278,32 +298,46 @@ def phase_k1(torch, exp_rate: float) -> dict:
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         else:
             q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+        merges = kernels.oneshot_attention.merges
         got = kernels.oneshot_attention(q, k, v, scale).float()
+        merged = kernels.oneshot_attention.merges - merges
         want = scaled_dot_product_attention(q.float(), k.float(), v.float(), scale)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         rel = err / want.abs().max().item()
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        dk, dv = kernels.attention_head_dim(d), kernels.attention_value_dim(d)
+        splits, kv_split = kernels.attention_splits(dtype == bf16, b, n, n, h, dk, dv, sms)
+        atol = K1_ATOL if dtype == bf16 else K1_F32_ATOL
         row = {"shape": [b, n, h, d], "dtype": str(dtype).split(".")[-1], "fused_qkv_slices": fused,
-               "kernel_head_dim": kernels.attention_head_dim(d), "scale": scale, "max_abs_err": err,
-               "max_rel_err": rel, "atol": K1_ATOL,
+               "kernel_head_dim": dk, "kernel_value_dim": dv, "kv_splits": splits, "merge_launched": merged,
+               "scale": scale, "max_abs_err": err, "max_rel_err": rel, "atol": atol,
                "kernel_ms": cuda_ms(torch, lambda: kernels.oneshot_attention(q, k, v, scale), 20),
                "plain_ms": cuda_ms(torch, lambda: scaled_dot_product_attention(q, k, v, scale), 5),
                "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), 20)}
-        # the function's work at its own D (a padded launch does more)
-        rate, elem = (PEAK_BF16_FLOPS, 2) if dtype == bf16 else (PEAK_F32_FLOPS, 4)
-        row["bound_ms"], row["bound_by"] = bound([(4 * b * n * n * h * d, rate)], 4 * b * n * h * d * elem,
-                                                 b * h * n * n, exp_rate)
-        if b == 2 and dtype == bf16:  # the kernels' own schedule in PyTorch, in bf16 as the kernel runs it
+        # the function's work at its own D (a padded launch does more); a
+        # float32 product is three TF32 products on the tensor cores, and the
+        # float32 SIMT figure is kept beside it
+        flops, exps = 4 * b * n * n * h * d, b * h * n * n
+        if dtype == bf16:
+            row["bound_ms"], row["bound_by"] = bound([(flops, PEAK_BF16_FLOPS)], 4 * b * n * h * d * 2, exps, exp_rate)
+        else:
+            row["bound_ms"], row["bound_by"] = bound([(3 * flops, PEAK_TF32_FLOPS)], 4 * b * n * h * d * 4,
+                                                     exps, exp_rate)
+            row["bound_simt_ms"], row["bound_simt_by"] = bound([(flops, PEAK_F32_FLOPS)], 4 * b * n * h * d * 4,
+                                                               exps, exp_rate)
+        if b == 2 and dtype == bf16 and d <= 256:  # the kernels' own schedule in PyTorch, in bf16 as the kernel runs it
             streamed = streamed_attention_plain(q, k, v, scale).float()
             row["max_rel_err_vs_streamed"] = ((got - streamed).abs().max() / streamed.abs().max()).item()
             row["streamed_rtol"] = K1_STREAMED_RTOL
         emit("k1", **row)
-        if not err <= K1_ATOL:
-            raise AssertionError(f"K1 {row['shape']} {row['dtype']}: max abs err {err} > {K1_ATOL}")
+        if not err <= atol:
+            raise AssertionError(f"K1 {row['shape']} {row['dtype']}: max abs err {err} > {atol}")
         if not row.get("max_rel_err_vs_streamed", 0.0) <= K1_STREAMED_RTOL:
             raise AssertionError(f"K1 {row['shape']} against its streamed plain version: "
                                  f"{row['max_rel_err_vs_streamed']} > {K1_STREAMED_RTOL}")
+        if merged != (splits > 1):
+            raise AssertionError(f"K1 {row['shape']} {row['dtype']}: {merged} merges for {splits} kv splits")
         rows.append(row)
 
     k1_host_cost(torch, (shapes[0], shapes[2]))
@@ -505,7 +539,61 @@ def phase_k2(torch, against=None) -> dict:
             raise AssertionError(f"K2 {name} flow did not give an all-zero window")
     corr_host_cost(torch, "k2_host_us_per_launch", kernels.local_corr, against and against.local_corr,
                    (7, 64, 32, 32, 2, torch.bfloat16))
+    corr_padded_channels(torch)
     return summary_row(rows)
+
+
+def corr_padded_channels(torch) -> None:
+    """K2 and K3 at a channel count TMA cannot stage as it is: C = 12 in bf16
+    (24-byte pixels) at pass 1's r = 2 shape on the homography flow, through
+    `local_correlation` (zero-padded to 16 channels, the caller's 1/√12),
+    against the plain versions at C = 12; K3 twice, bitwise equal."""
+    from gfnet_tpu_torch.ops import kernels
+    from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, local_corr_dq_plain,
+                                                       local_correlation, pad_channels)
+    from gfnet_tpu_torch.utils.profiling import PEAK_BF16_FLOPS, bound
+
+    gen = torch.Generator("cuda").manual_seed(12)
+    r, c, t, g, b = 2, 12, 224, 128, 2
+    query = torch.randn((b, g, g, c), generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
+    target = torch.randn((b, t, t, c), generator=gen, device="cuda").to(torch.bfloat16)
+    flow = corr_flow(torch, "homography", b, g, t, 31)
+    grad = torch.randn((b, g, g, (2 * r + 1) ** 2), generator=gen, device="cuda")
+    before = kernels.launch_counts()
+    out = local_correlation(query, target, flow, r)
+    (dq,) = torch.autograd.grad(out, query, grad)
+    launched = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    padded = pad_channels(target)
+    k3 = lambda: kernels.local_corr_bwd(grad, padded, flow, r, scale=1.0 / math.sqrt(c))[..., :c]
+    first, again = k3(), k3()
+    q = query.detach()
+    want2, want3 = _local_correlation_patch(q, target, flow, r), local_corr_dq_plain(grad, target, flow, r)
+    torch.cuda.synchronize()
+    row = {"radius": r, "query": [b, g, g, c], "target": [b, t, t, c], "dtype": "bfloat16", "flow": "homography",
+           "padded_to": padded.shape[-1], "launches": launched,
+           "k2_max_abs_err": (out - want2).abs().max().item(), "k2_atol": K2_ATOL,
+           "k3_max_abs_err": (first - want3).abs().max().item(), "k3_atol": K3_ATOL,
+           # through autograd dq comes back in the query's bf16
+           "k3_autograd_max_abs_err_vs_bf16": (dq.float() - want3.to(dq.dtype).float()).abs().max().item(),
+           "k3_bitwise_repeatable": bool(torch.equal(first, again)),
+           "k2_ms": cuda_ms(torch, lambda: local_correlation(q, target, flow, r), 20),
+           "k2_plain_ms": cuda_ms(torch, lambda: _local_correlation_patch(q, target, flow, r), 3),
+           "k3_ms": cuda_ms(torch, k3, 20),
+           "k3_plain_ms": cuda_ms(torch, lambda: local_corr_dq_plain(grad, target, flow, r), 3)}
+    # the function's work at its own C = 12: bf16 dots at the bf16 rate;
+    # bytes of query, target, flow and windows (K2) or gradient and dq (K3)
+    active = k2_active_cells(torch, flow, t, t, r)
+    ops = corr_ops(active, r, c, PEAK_BF16_FLOPS)
+    row["k2_bound_ms"], row["k2_bound_by"] = bound(
+        ops, 2 * (q.numel() + target.numel()) + 4 * (flow.numel() + out.numel()))
+    row["k3_bound_ms"], row["k3_bound_by"] = bound(
+        ops, 2 * target.numel() + 4 * (flow.numel() + grad.numel() + first.numel()))
+    emit("corr_padded_channels", **row)
+    if launched != {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1}:
+        raise AssertionError(f"padded-channel correlation launches {launched}")
+    if not (row["k2_max_abs_err"] <= K2_ATOL and row["k3_max_abs_err"] <= K3_ATOL
+            and row["k3_bitwise_repeatable"]):
+        raise AssertionError(f"K2/K3 at C = {c}: {row}")
 
 
 def corr_host_cost(torch, phase: str, launcher, earlier, shape) -> dict:
@@ -669,6 +757,62 @@ def phase_flagship(torch, np) -> dict:
     return result, m
 
 
+def phase_flagship_f32(torch, np, m) -> dict:
+    """The flagship in float32 (`GFNetMatcher(ModelConfig(), dtype=torch.float32)`,
+    the JAX package's `GFNetMatcher(cfg, dtype=jnp.float32)`), B = 1, one
+    448² pair, TF32 off: `match()` on the card (K1 on its float32 kernel)
+    against the same weights (the bf16 matcher's ViT in float32, the r5b
+    head) on the CPU (the plain versions), warp and certainty at the tiny
+    gate's E2E_ATOL; each pass's ms (median of 5) and the K1 launches beside
+    the bf16 matcher's."""
+    import statistics
+
+    from gfnet_tpu_torch.matcher import GFNetMatcher
+    from gfnet_tpu_torch.ops import kernels
+    from gfnet_tpu_torch.utils.convert import load_head
+
+    head, _ = load_head(str(HEAD_NPZ))
+    vit = {k: v.float().cpu() for k, v in m.vit.state_dict().items()}
+    gpu, cpu = (GFNetMatcher(m.cfg, device=dev, dtype=torch.float32, vit_state=vit, head_state=head)
+                for dev in ("cuda", "cpu"))
+    a, b = smooth_images(np, np.random.default_rng(5), 2, 448, 448)
+    gpu.match(a, b)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    wg, cg = gpu.match(a, b)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    t0 = time.perf_counter()
+    wc, cc = cpu.match(a, b)
+    cpu_s = time.perf_counter() - t0
+    werr, cerr = (wg.cpu() - wc).abs().max().item(), (cg.cpu() - cc).abs().max().item()
+
+    x, y = (torch.from_numpy(im)[None].cuda() for im in (a, b))
+    passes = {}
+    for name, mm in (("float32", gpu), ("bfloat16", m)):
+        with torch.inference_mode():
+            pre = mm._pass1(x, y)
+            for part, fn in (("pass1", lambda: mm._pass1(x, y)), ("pass2", lambda: mm._pass2(x, y, *pre))):
+                walls = []
+                for _ in range(6):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t1) * 1e3)
+                passes[f"{name}_{part}_ms"] = statistics.median(walls[1:])
+    want_k1 = 2 * (m.cfg.dino.depth + m.cfg.dino.decoder_cfg.num_cross_attn)
+    row = {"warp_max_abs_err": werr, "certainty_max_abs_err": cerr, "atol": E2E_ATOL,
+           "warp_shape": list(wg.shape), "cpu_match_s": cpu_s, "launches": counts,
+           "expected_k1_launches": want_k1, **passes}
+    emit("flagship_f32", **row)
+    if counts["oneshot_attention"] != want_k1:
+        raise AssertionError(f"float32 flagship: K1 launches {counts}, expected {want_k1}")
+    if not (werr <= E2E_ATOL and cerr <= E2E_ATOL):
+        raise AssertionError(f"float32 flagship CUDA vs CPU: warp {werr}, certainty {cerr} > {E2E_ATOL}")
+    return row
+
+
 def accuracy_pairs(torch) -> tuple[dict, float]:
     """The oracle's two sets of synthetic pairs, made on the card: name →
     pairs, and the seconds it took."""
@@ -760,12 +904,12 @@ def corr_model_flows(torch, run) -> list:
     seen: list = []
 
     def recording(name):
-        def launch(first, target, flow, radius):
+        def launch(first, target, flow, radius, **kw):
             tiling = corr_tiling(torch, flow, target, radius, name == "local_corr")
             seen.append({"kernel": name, "radius": radius, "grid": list(flow.shape[:3]),
                          "target": list(target.shape), "dtype": str(target.dtype).split(".")[-1],
                          **{k: tiling[k] for k in ("tile", "box", "staged_share")}})
-            return real[name](first, target, flow, radius)
+            return real[name](first, target, flow, radius, **kw)
         launch.launches = 0  # the real launcher counts on the name it is called by
         return launch
 
@@ -1454,6 +1598,7 @@ def main() -> int:
         k2 = timed("k2", phase_k2, torch)
         timed("tiny", phase_tiny, torch, np)
         flag, matcher = timed("flagship", phase_flagship, torch, np)
+        timed("flagship_f32", phase_flagship_f32, torch, np, matcher)
         acc_launches = timed("accuracy", phase_accuracy, torch, matcher)
         k3 = timed("k3", phase_k3, torch)
         timed("tiny_train", phase_tiny_grads, torch, np)

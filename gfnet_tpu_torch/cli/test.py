@@ -62,8 +62,8 @@ def main(argv=None):
         head_state, kv_norm = load_head(args.ckpt_path)
         cfg = cfg.with_kv_norm(kv_norm)
         print(f"loaded checkpoint {args.ckpt_path}")
-    dtype = torch.float32 if args.tiny or not cfg.amp else torch.bfloat16
-    matcher = GFNetMatcher(cfg, device=args.device, dtype=dtype, vit_state=vit_state,
+    # bf16 always, as the JAX package's `GFNetMatcher(cfg)`: `cfg.amp` picks nothing
+    matcher = GFNetMatcher(cfg, device=args.device, dtype=torch.bfloat16, vit_state=vit_state,
                            head_state=head_state)
 
     ds_name = {"googlemap_448x448": "googlemap"}.get(args.dataset, args.dataset)

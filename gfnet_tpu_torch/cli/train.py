@@ -115,8 +115,8 @@ def main(argv=None, batches: Iterable[dict] | None = None):
         head_state, kv_norm = load_head(args.ft_ckpt)
         cfg = cfg.with_kv_norm(kv_norm)
         print(f"loaded fine-tune init from {args.ft_ckpt}")
-    dtype = torch.float32 if args.tiny or not cfg.amp else torch.bfloat16
-    matcher = GFNetMatcher(cfg, device=device, dtype=dtype, vit_state=vit_state,
+    # bf16 always, as the JAX package's `GFNetMatcher(cfg)`: `cfg.amp` picks nothing
+    matcher = GFNetMatcher(cfg, device=device, dtype=torch.bfloat16, vit_state=vit_state,
                            head_state=head_state)
 
     global_batch = args.batch_size * nproc

@@ -213,14 +213,20 @@ cudaError_t dispatch(const void* query, const void* target, const void* flow, vo
 // aligned, float32 or bf16 alike; flow (B, G1, G2, 2) float32 normalized xy;
 // out (B, G1, G2, (2r+1)²) float32. The tiling (cells a block owns, the box
 // it may stage, channels per stage, the shared-memory layout) comes from
-// the wrapper. Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int gfnet_local_corr(const void* query, const void* target, const void* flow,
+// the wrapper; `device` is the tensors'. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int gfnet_local_corr(int device, const void* query, const void* target, const void* flow,
                                 void* out, int batch, int g1, int g2, int height, int width,
                                 int channels, int radius, int tile_y, int tile_x, int box_h,
                                 int box_w, int chunk, int smem_cells, int smem_query,
                                 int smem_table, int smem_total, float inv_sqrt_c, int is_bf16,
                                 void* stream) {
+  // The calling thread may have no context current (PyTorch's autograd
+  // engine runs a backward, and a recomputed forward, on threads of its
+  // own, where a first launch would fail): make the tensors' device, and its
+  // primary context, current first.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return set;
   const CorrTiling t{batch, g1, g2, height, width, channels, radius, tile_y, tile_x, box_h,
                      box_w, chunk, smem_cells, smem_query, smem_table, smem_total};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -5,7 +5,10 @@ hand-written CUDA kernel K1 (`ops/kernels.py`, `csrc/oneshot_attention.cu`)
 for CUDA tensors, with its gradient recomputed through the plain version, and
 runs the plain `scaled_dot_product_attention` for CPU tensors.
 `streamed_attention_plain` repeats the kernels' schedule (kv tiles, running
-max and sum, base-2 exponentials) for the tests. The one semantic that must
+max and sum, base-2 exponentials) for the tests, `kv_split_attention_plain`
+their split of the kv range and its merge, `column_group_attention_plain`
+their column groups above head dim 256, and `attention_tf32_plain` the
+float32 kernel's three TF32 passes. The one semantic that must
 survive is the "entropy invariance" softmax scale, head_dim^-0.5 · log(N) / log(train_avg_length)
 (ref `attention.py:84,213,249`).
 """
@@ -68,9 +71,67 @@ def streamed_attention_plain(q: Tensor, k: Tensor, v: Tensor, scale: float | Non
     return (o / l[..., None]).permute(0, 2, 1, 3).to(v.dtype)
 
 
+def kv_split_attention_plain(q: Tensor, k: Tensor, v: Tensor, scale: float, kv_split: int) -> Tensor:
+    """K1 with its kv range split (`kernels.attention_splits`), in PyTorch:
+    each range of `kv_split` keys gives its rows' unnormalised output o_s,
+    max m_s (log2 domain: logits · scale·log2(e)) and sum l_s, and the merge
+    kernel's combination Σ 2^(m_s − M)·o_s / Σ 2^(m_s − M)·l_s, M = max m_s.
+    float32; the same function as `scaled_dot_product_attention`."""
+    c = scale * math.log2(math.e)
+    parts = []
+    for k0 in range(0, k.shape[1], kv_split):
+        s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k[:, k0:k0 + kv_split].float()) * c
+        m = s.amax(-1)
+        p = torch.exp2(s - m[..., None])
+        parts.append((m, p.sum(-1), torch.einsum("bhnm,bmhd->bhnd", p, v[:, k0:k0 + kv_split].float())))
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp2(m - big) for m, _, _ in parts]
+    num = sum(wi[..., None] * o for wi, (_, _, o) in zip(w, parts))
+    den = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+    return (num / den[..., None]).permute(0, 2, 1, 3)
+
+
+def column_group_attention_plain(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    """K1's column groups in PyTorch: the logits over all of q's and k's
+    channels, the same for every group, then the output
+    `kernels.ATTENTION_GROUP` columns of v at a time, concatenated. float32;
+    the same function as `scaled_dot_product_attention` at any widths of q/k
+    and v."""
+    group = kernels.ATTENTION_GROUP
+    probs = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale, dim=-1)
+    return torch.cat([torch.einsum("bhnm,bmhd->bnhd", probs, v[..., c0:c0 + group].float())
+                      for c0 in range(0, v.shape[-1], group)], dim=-1)
+
+
+def tf32_round(x: Tensor) -> Tensor:
+    """float32 to TF32 as `cvt.rna.tf32.f32` rounds it: 10 mantissa bits, to
+    nearest, ties away from zero (the low 13 bits cleared), by bit operations."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq: str, x: Tensor, y: Tensor, passes: int) -> Tensor:
+    """einsum `eq` of float32 x and y on TF32 operands: hi·hi + hi·lo + lo·hi
+    (hi = tf32(x), lo = tf32(x − hi)) with `passes` = 3, hi·hi alone with 1."""
+    xh, yh = tf32_round(x), tf32_round(y)
+    out = torch.einsum(eq, xh, yh)
+    if passes == 3:
+        out = out + torch.einsum(eq, xh, tf32_round(y - yh)) + torch.einsum(eq, tf32_round(x - xh), yh)
+    return out
+
+
+def attention_tf32_plain(q: Tensor, k: Tensor, v: Tensor, scale: float, passes: int = 3) -> Tensor:
+    """The float32 kernel's products in PyTorch: Q·Kᵀ and P·V each as
+    `passes` TF32 products (3: float32 precision; 1: a single TF32 pass),
+    the softmax in float32. A model of the kernel's numbers, not of its
+    schedule."""
+    s = _tf32_product("bnhd,bmhd->bhnm", q.float(), k.float(), passes) * scale
+    return _tf32_product("bhnm,bmhd->bnhd", torch.softmax(s, dim=-1), v.float(), passes)
+
+
 class _FusedAttentionCUDA(torch.autograd.Function):
-    """K1 forward, at any head dim up to 128 (`kernels.oneshot_attention`
-    zero-pads those it is not instantiated at; above 128 it raises); the
+    """K1 forward, at any head dim (`kernels.oneshot_attention` zero-pads
+    those it is not instantiated at, and runs column groups above 256); the
     backward recomputes through the plain version at the caller's head dim,
     as the JAX package pairs its kernel with an einsum backward
     (`ops/attention.py:122-147`). It has no attention backward kernel."""

@@ -12,9 +12,11 @@ its slowest source however many kernels later slices add. The library lands in
 rebuilds and an unchanged one loads at once.
 
 Each wrapper checks device, dtype, shape and layout, allocates its output
-with `torch.empty`, launches on the current stream, raises if the launch
-failed, and adds one to its `launches` counter. Nothing here falls back to
-a plain PyTorch version: the callers in `ops/attention.py` and
+(and K1 its kv splits' workspace) with `torch.empty`, launches on the
+current stream of the tensors' device (which the library makes current in
+the calling thread: autograd runs backward on threads of its own), raises
+if the launch failed, and adds one to its `launches` counter. Nothing here
+falls back to a plain PyTorch version: the callers in `ops/attention.py` and
 `ops/local_correlation.py` take the plain version only for CPU tensors.
 """
 
@@ -87,9 +89,9 @@ def _build(out_dir: Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.gfnet_oneshot_attention.argtypes = [p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, f, i, p]
+    lib.gfnet_oneshot_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, f, i, i, i, p]
     lib.gfnet_oneshot_attention.restype = i
-    corr = [p, p, p, p] + [i] * 16 + [f, i, p]
+    corr = [i, p, p, p, p] + [i] * 16 + [f, i, p]
     lib.gfnet_local_corr.argtypes = corr
     lib.gfnet_local_corr.restype = i
     lib.gfnet_local_corr_bwd.argtypes = corr
@@ -134,44 +136,94 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-ATTENTION_HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims K1 is instantiated at
+# the head dims K1 is instantiated at; any other runs on zero-padded copies,
+# and one above 256 in column groups (`attention_head_dim`, `pad_head_dim`)
+ATTENTION_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+ATTENTION_GROUP = 256  # above 256, the output columns one block takes (a column group)
+KV_TILE = 64  # keys: a kv split is a multiple of it
 
 
 def attention_head_dim(d: int) -> int:
-    """The head dim K1 runs a head dim `d` at: the smallest of
-    `ATTENTION_HEAD_DIMS` that holds it. Above 128 it raises."""
+    """The width at which K1 computes the logits of head dim `d`: the smallest
+    of `ATTENTION_HEAD_DIMS` that holds it, and above 256 `d` rounded up to a
+    multiple of 64 (the column-group kernels read q and k in k-steps). Any
+    `d` runs."""
+    if d < 1:
+        raise ValueError(f"oneshot_attention: head dim {d}")
     for width in ATTENTION_HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError(f"oneshot_attention: head dim {d} is above {ATTENTION_HEAD_DIMS[-1]}, "
-                     "the widest K1 takes")
+    return -(-d // 64) * 64
+
+
+def attention_value_dim(d: int) -> int:
+    """The width of v and of K1's output for head dim `d`: the logits' width
+    up to 256; above, whole column groups of `ATTENTION_GROUP`."""
+    return attention_head_dim(d) if d <= ATTENTION_HEAD_DIMS[-1] else -(-d // ATTENTION_GROUP) * ATTENTION_GROUP
 
 
 def pad_head_dim(fn, q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
-    """`fn(q, k, v, scale)` on q, k, v zero-padded along the head dim to
-    `attention_head_dim`, sliced back to D channels (contiguous). Zero
-    channels in q and k add nothing to a logit and those of v give zero
-    outputs, so the function is unchanged; `scale` is the caller's, from the
-    unpadded D. A head dim K1 is instantiated at passes through as it is."""
+    """`fn(q, k, v, scale)` on q and k zero-padded along the head dim to
+    `attention_head_dim`, v to `attention_value_dim`, sliced back to D
+    channels (contiguous). Zero channels in q and k add nothing to a logit
+    and those of v give zero outputs, so the function is unchanged; `scale`
+    is the caller's, from the unpadded D. A head dim K1 is instantiated at
+    passes through as it is."""
     d = q.shape[-1]
-    width = attention_head_dim(d)
-    if width == d:
+    dk, dv = attention_head_dim(d), attention_value_dim(d)
+    if dk == d and dv == d:
         return fn(q, k, v, scale)
-    pad = lambda t: torch.nn.functional.pad(t, (0, width - d))
-    return fn(pad(q), pad(k), pad(v), scale)[..., :d].contiguous()
+    pad = lambda t, width: torch.nn.functional.pad(t, (0, width - d))
+    return fn(pad(q, dk), pad(k, dk), pad(v, dv), scale)[..., :d].contiguous()
+
+
+@functools.lru_cache(maxsize=512)
+def attention_splits(bf16: bool, b: int, nq: int, nk: int, h: int, dk: int, dv: int,
+                     sms: int) -> tuple[int, int]:
+    """(splits, keys a split) of a K1 launch. Where the kernel's blocks (q
+    rows × batch·heads × column groups) are fewer than the card's `sms`
+    times the blocks an SM holds (two of the float32 kernel's four warps,
+    one of a bf16 kernel's eight), the kv range is split into ranges of
+    whole 64-key tiles, at least two tiles each, as many as that many
+    blocks hold; a second kernel merges the splits. Else one split of the
+    whole range. Cached: a launch's host cost."""
+    tiles = -(-nk // KV_TILE)
+    rows = 64 if (not bf16 or dk == 256) else 128
+    groups = dv // ATTENTION_GROUP if dk > ATTENTION_GROUP else 1
+    blocks = -(-nq // rows) * b * h * groups
+    splits = min(sms * (1 if bf16 else 2) // blocks, tiles // 2)
+    if splits < 2:
+        return 1, tiles * KV_TILE
+    per = -(-tiles // splits) * KV_TILE
+    return -(-nk // per), per
+
+
+@functools.lru_cache(maxsize=512)
+def _attention_plan(bf16: bool, b: int, nq: int, nk: int, h: int, d: int, index: int) -> tuple[int, int, int, int]:
+    """(dk, dv, splits, keys a split) of a K1 call on device `index`, cached:
+    the launches are many and short, and bound by the host."""
+    dk, dv = attention_head_dim(d), attention_value_dim(d)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return (dk, dv) + attention_splits(bf16, b, nq, nk, h, dk, dv, sms)
 
 
 def oneshot_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     """K1: softmax(q·kᵀ·scale)·v over (B, N, H, D) CUDA tensors → contiguous
-    (B, Nq, H, D). Takes float32 or bf16 and any D up to 128: the kernels are
-    instantiated at D in `ATTENTION_HEAD_DIMS`, and another D runs them on
-    copies zero-padded to the next of those (`pad_head_dim`: one launch,
-    counted as one); above 128 it raises. At an instantiated D the head and
-    channel dims must be packed (strides D, 1), the batch and token strides
-    are free (a slice of a fused qkv projection is read in place). bf16 runs
-    on tensor cores (`wgmma` at D=64, `mma.sync` at the others) and reads
-    16-byte vectors: its pointers must be 16-byte aligned, its batch and
-    token strides multiples of 8 and its scale positive, or it raises."""
+    (B, Nq, H, D), float32 or bf16, any D. The kernels are instantiated at D
+    in `ATTENTION_HEAD_DIMS`; another D up to 256 runs them on copies
+    zero-padded to the next of those, and a D above 256 runs the
+    column-group kernels, whose blocks compute the logits over all of q's
+    and k's channels (padded to a multiple of 64) and the output of 256 of
+    v's (padded to whole groups): `pad_head_dim`, one call, counted as one.
+    At an instantiated D the head and channel dims must be packed (strides
+    D, 1), the batch and token strides are free (a slice of a fused qkv
+    projection is read in place). Both types run on tensor cores (bf16:
+    `wgmma` at D = 64, 128, 256, `mma.sync` at 8, 16, 32 and in column
+    groups; float32: `mma.sync` TF32 in three passes, float32 precision)
+    and read 16-byte vectors: pointers must be 16-byte aligned and batch and
+    token strides whole 16-byte vectors, and a bf16 scale positive, or it
+    raises. Where the blocks would not fill the card the kv range is split
+    (`attention_splits`): a second launch merges the splits, still one call."""
     _require_cuda("oneshot_attention", q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"oneshot_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
@@ -180,29 +232,46 @@ def oneshot_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     b, nq, h, d = q.shape
     if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
         raise ValueError(f"oneshot_attention: q {tuple(q.shape)} vs kv {tuple(k.shape)}")
-    if d not in ATTENTION_HEAD_DIMS:
-        return pad_head_dim(oneshot_attention, q, k, v, scale)
     bf16 = q.dtype == torch.bfloat16
     if bf16 and not scale > 0:
         raise ValueError(f"oneshot_attention: bf16 needs a positive scale, got {scale}")
-    for t in (q, k, v):
-        if t.stride(3) != 1 or t.stride(2) != d:
+    dk, dv, splits, kv_split = _attention_plan(bf16, b, nq, k.shape[1], h, d, q.device.index)
+    if dk == d and dv == d:
+        return _attention_launch(q, k, v, scale, splits, kv_split)
+    return pad_head_dim(functools.partial(_attention_launch, splits=splits, kv_split=kv_split), q, k, v, scale)
+
+
+def _attention_launch(q: Tensor, k: Tensor, v: Tensor, scale: float, splits: int, kv_split: int) -> Tensor:
+    """One K1 call at the kernels' widths: q, k (..., dk), v (..., dv), the
+    kv range in `splits` ranges of `kv_split` keys."""
+    b, nq, h, dk = q.shape
+    dv = v.shape[3]
+    bf16 = q.dtype == torch.bfloat16
+    vec = 16 // q.element_size()
+    for t, width in ((q, dk), (k, dk), (v, dv)):
+        if t.stride(3) != 1 or t.stride(2) != width:
             raise ValueError("oneshot_attention: head and channel dims must be packed")
-        if bf16 and (t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8):
-            raise ValueError("oneshot_attention: bf16 needs 16-byte aligned pointers "
-                             "and batch/token strides that are multiples of 8")
-    out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
+        if t.data_ptr() % 16 or t.stride(0) % vec or t.stride(1) % vec:
+            raise ValueError("oneshot_attention: needs 16-byte aligned pointers and batch/token "
+                             f"strides that are multiples of {vec} elements")
+    nk = k.shape[1]
+    out = torch.empty((b, nq, h, dv), dtype=q.dtype, device=q.device)
+    work = (torch.empty(splits * b * h * nq * (dv + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     lib = load_library()
     err = lib.gfnet_oneshot_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, k.shape[1], h, d,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        float(scale), int(bf16), _stream(q.device))
+        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(), b, nq, nk, h, dk, dv, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale), int(bf16), splits, kv_split,
+        _stream(q.device))
     _check(err, "oneshot_attention")
     oneshot_attention.launches += 1
+    oneshot_attention.merges += splits > 1
     return out
 
 
 oneshot_attention.launches = 0
+oneshot_attention.merges = 0  # calls whose kv was split: each launched the merge kernel too
 
 
 # The tiling of K2 and K3 (`csrc/local_corr_window.cuh`): a block of eight
@@ -286,8 +355,9 @@ def corr_schedule(radius: int, channels: int, elem: int, height: int, width: int
 
 
 def _corr_launch(name: str, fn, first: Tensor, target: Tensor, flow: Tensor, out: Tensor, radius: int,
-                 schedule: CorrSchedule | None) -> None:
-    """The launch K2 and K3 share: `first` is K2's query or K3's gradient."""
+                 schedule: CorrSchedule | None, scale: float | None) -> None:
+    """The launch K2 and K3 share: `first` is K2's query or K3's gradient;
+    `scale` the dots' scale, by default 1/√C of the target it is handed."""
     for t in (first, target, flow):
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
@@ -298,19 +368,21 @@ def _corr_launch(name: str, fn, first: Tensor, target: Tensor, flow: Tensor, out
     elem = target.element_size()
     if schedule is None:
         schedule = corr_schedule(radius, c, elem, h, w, g1, g2, b, name == "local_corr")
-    err = fn(first.data_ptr(), target.data_ptr(), flow.data_ptr(), out.data_ptr(), b, g1, g2, h, w, c,
-             int(radius), *schedule.tile, *schedule.box, schedule.chunk, *schedule.smem, 1.0 / math.sqrt(c),
+    err = fn(target.device.index, first.data_ptr(), target.data_ptr(), flow.data_ptr(), out.data_ptr(),
+             b, g1, g2, h, w, c, int(radius), *schedule.tile, *schedule.box, schedule.chunk, *schedule.smem,
+             1.0 / math.sqrt(c) if scale is None else float(scale),
              int(target.dtype == torch.bfloat16), _stream(target.device))
     _check(err, name)
 
 
 def local_corr(query: Tensor, target: Tensor, flow: Tensor, radius: int,
-               schedule: CorrSchedule | None = None) -> Tensor:
+               schedule: CorrSchedule | None = None, scale: float | None = None) -> Tensor:
     """K2: local correlation windows. query (B, G1, G2, C) and target
     (B, H, W, C) contiguous 16-byte aligned CUDA tensors of one dtype (float32
     or bf16) with C × element size a multiple of 16 bytes, flow (B, G1, G2, 2)
     float32 → (B, G1, G2, (2r+1)²) float32, ky-major. `schedule`: the tiling
-    to launch with (`corr_layout`), by default `corr_schedule`'s."""
+    to launch with (`corr_layout`), by default `corr_schedule`'s; `scale`:
+    the dots', by default 1/√C (a caller that zero-padded C passes its own)."""
     _require_cuda("local_corr", query, target, flow)
     if query.dtype not in (torch.float32, torch.bfloat16) or target.dtype != query.dtype:
         raise ValueError(f"local_corr: dtypes {query.dtype}, {target.dtype}")
@@ -324,7 +396,7 @@ def local_corr(query: Tensor, target: Tensor, flow: Tensor, radius: int,
     if radius < 0:
         raise ValueError(f"local_corr: radius {radius}")
     out = torch.empty((b, g1, g2, (2 * radius + 1) ** 2), dtype=torch.float32, device=query.device)
-    _corr_launch("local_corr", load_library().gfnet_local_corr, query, target, flow, out, radius, schedule)
+    _corr_launch("local_corr", load_library().gfnet_local_corr, query, target, flow, out, radius, schedule, scale)
     local_corr.launches += 1
     return out
 
@@ -333,12 +405,12 @@ local_corr.launches = 0
 
 
 def local_corr_bwd(grad: Tensor, target: Tensor, flow: Tensor, radius: int,
-                   schedule: CorrSchedule | None = None) -> Tensor:
+                   schedule: CorrSchedule | None = None, scale: float | None = None) -> Tensor:
     """K3: gradient of K2's windows in the query. grad (B, G1, G2, (2r+1)²)
     float32, target (B, H, W, C) float32 or bf16 (16-byte aligned, C ×
     element size a multiple of 16 bytes), flow (B, G1, G2, 2) float32, all
     contiguous CUDA tensors → dq (B, G1, G2, C) float32. `schedule` as for
-    `local_corr`, laid out without query rows."""
+    `local_corr`, laid out without query rows; `scale` as for `local_corr`."""
     _require_cuda("local_corr_bwd", grad, target, flow)
     if grad.dtype != torch.float32 or flow.dtype != torch.float32:
         raise ValueError(f"local_corr_bwd: grad and flow must be float32, got {grad.dtype}, {flow.dtype}")
@@ -353,7 +425,8 @@ def local_corr_bwd(grad: Tensor, target: Tensor, flow: Tensor, radius: int,
                          f"{tuple(flow.shape)} at radius {radius}")
     b, g1, g2, _ = grad.shape
     dq = torch.empty((b, g1, g2, target.shape[3]), dtype=torch.float32, device=grad.device)
-    _corr_launch("local_corr_bwd", load_library().gfnet_local_corr_bwd, grad, target, flow, dq, radius, schedule)
+    _corr_launch("local_corr_bwd", load_library().gfnet_local_corr_bwd, grad, target, flow, dq, radius, schedule,
+                 scale)
     local_corr_bwd.launches += 1
     return dq
 
@@ -367,6 +440,7 @@ KERNELS = {"oneshot_attention": oneshot_attention, "local_corr": local_corr,
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    oneshot_attention.merges = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -28,6 +28,8 @@ Tests and `chip_smoke.py` use them, the model does not.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -114,13 +116,14 @@ def _window_patches(target: Tensor, flow: Tensor, radius: int):
 
 
 def _local_correlation_patch(query: Tensor, target: Tensor, flow: Tensor, radius: int,
-                             patches=None) -> Tensor:
+                             patches=None, scale: float | None = None) -> Tensor:
     """Plain version of K2. All (2r+1)² taps of a cell share one fractional
     offset on the integer pixel lattice, so one (2r+2)² patch of the
     zero-padded target and a four-corner combine reproduce bilinear
     zeros-padding sampling exactly. Dots and combine in float32. `patches`:
     (patches, fx, fy) gathered otherwise, as `_tiled_patches` gathers them;
-    by default `_window_patches`'."""
+    by default `_window_patches`'. `scale`: the dots', by default 1/√C (the
+    kernels take the caller's where it padded C: `pad_channels`)."""
     b, g1, g2, c = query.shape
     win = 2 * radius + 2
     patches, fx, fy = _window_patches(target, flow, radius) if patches is None else patches
@@ -132,15 +135,17 @@ def _local_correlation_patch(query: Tensor, target: Tensor, flow: Tensor, radius
         + fy * (1 - fx) * s[:, 1:, : win - 1]
         + fy * fx * s[:, 1:, 1:]
     )
-    return comb.reshape(b, g1, g2, (2 * radius + 1) ** 2) / float(np.sqrt(c))
+    comb = comb.reshape(b, g1, g2, (2 * radius + 1) ** 2)
+    return comb / float(np.sqrt(c)) if scale is None else comb * scale
 
 
-def local_corr_dq_plain(g: Tensor, target: Tensor, flow: Tensor, radius: int, patches=None) -> Tensor:
+def local_corr_dq_plain(g: Tensor, target: Tensor, flow: Tensor, radius: int, patches=None,
+                        scale: float | None = None) -> Tensor:
     """Plain version of K3: the gradient of `_local_correlation_patch` in the
     query, written out. g (B, G1, G2, (2r+1)²) is spread over the (2r+2)²
     patch with the four corner weights (the adjoint of the combine), then
     contracted with the target patch and scaled by 1/√C → (B, G1, G2, C)
-    float32. Target and flow get no gradient. `patches` as for
+    float32. Target and flow get no gradient. `patches` and `scale` as for
     `_local_correlation_patch`."""
     b, g1, g2, k = g.shape
     c = target.shape[-1]
@@ -153,7 +158,8 @@ def local_corr_dq_plain(g: Tensor, target: Tensor, flow: Tensor, radius: int, pa
     sw[:, 1:, : win - 1] += fy * (1 - fx) * gt
     sw[:, 1:, 1:] += fy * fx * gt
     dq = torch.einsum("nyx,nyxc->nc", sw, patches.float())
-    return dq.reshape(b, g1, g2, c) / float(np.sqrt(c))
+    dq = dq.reshape(b, g1, g2, c)
+    return dq / float(np.sqrt(c)) if scale is None else dq * scale
 
 
 def _corr_windows(flow: Tensor, h: int, w: int, radius: int):
@@ -269,16 +275,29 @@ def local_corr_dq_tiled_plain(g: Tensor, target: Tensor, flow: Tensor, radius: i
     return local_corr_dq_plain(g, target, flow, radius, _tiled_patches(target, flow, radius, tile, box))
 
 
+def pad_channels(x: Tensor) -> Tensor:
+    """x (..., C) zero-padded along C to a whole number of 16-byte vectors
+    (TMA stages the target in them, the kernels read 16-byte loads),
+    contiguous. Zero channels add nothing to a dot, so K2 and K3 on padded
+    query and target compute the function at C, with the caller's 1/√C."""
+    c = x.shape[-1]
+    vec = 16 // x.element_size()
+    width = -(-c // vec) * vec
+    return torch.nn.functional.pad(x, (0, width - c)).contiguous() if width != c else x.contiguous()
+
+
 class _LocalCorrelationCUDA(torch.autograd.Function):
-    """K2 forward, K3 backward. The gradient goes to the query alone."""
+    """K2 forward, K3 backward, on channels padded by `pad_channels` with the
+    scale of the caller's C. The gradient goes to the query alone."""
 
     @staticmethod
     def forward(ctx, query: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tensor:
-        target = target.contiguous()
+        c = query.shape[-1]
+        target = pad_channels(target)
         flow = flow.float().contiguous()
         ctx.save_for_backward(target, flow)
-        ctx.radius = radius
-        return kernels.local_corr(query.contiguous(), target, flow, radius)
+        ctx.radius, ctx.channels = radius, c
+        return kernels.local_corr(pad_channels(query), target, flow, radius, scale=1.0 / math.sqrt(c))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -286,15 +305,16 @@ class _LocalCorrelationCUDA(torch.autograd.Function):
         target, flow = ctx.saved_tensors
         # the incoming gradient is a slice of a concatenation's, cast from the
         # model dtype: K3 takes it float32 and contiguous
-        dq = kernels.local_corr_bwd(grad.float().contiguous(), target, flow, ctx.radius)
-        return dq, None, None, None
+        dq = kernels.local_corr_bwd(grad.float().contiguous(), target, flow, ctx.radius,
+                                    scale=1.0 / math.sqrt(ctx.channels))
+        return dq[..., :ctx.channels], None, None, None
 
 
 def local_correlation(query: Tensor, target: Tensor, flow: Tensor, radius: int) -> Tensor:
     """(B, G, G, C) query, (B, H, W, C) target, (B, G, G, 2) flow →
     (B, G, G, (2r+1)²) float32, differentiable in the query only. On CUDA,
-    query and target share one storage dtype (float32 or bf16) and
-    accumulate in float32."""
+    query and target share one storage dtype (float32 or bf16), accumulate
+    in float32, and take any C (`pad_channels`)."""
     if query.is_cuda:
         return _LocalCorrelationCUDA.apply(query, target, flow, radius)
     return _local_correlation_patch(query, target.detach(), flow.detach(), radius)

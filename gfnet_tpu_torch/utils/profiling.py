@@ -27,6 +27,7 @@ import torch
 # 700 W power limit: a card set below it runs slower under load.
 PEAK_BF16_FLOPS = 989e12  # tensor cores, bf16 and fp16
 PEAK_F32_FLOPS = 67e12    # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 494.7e12  # tensor cores, TF32 (a float32 product in three TF32 passes takes three)
 PEAK_BYTES = 3.35e12      # HBM3, bytes a second
 
 

@@ -30,6 +30,7 @@ ROOT = Path(__file__).resolve().parent.parent
 def load(name: str, path: Path):
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module  # a dataclass looks its module up there
     spec.loader.exec_module(module)
     return module
 

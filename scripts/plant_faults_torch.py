@@ -8,7 +8,10 @@ gate's tolerance:
   - K1 with its softmax scale off by 1%, with the last 64 keys dropped, and
     with a stale ring stage (each 64-key tile of probabilities multiplied
     with the V tile before it), at the ViT and cross-view shapes of phase 3
-    (bf16: the `wgmma` kernel at D=64, the `mma.sync` kernel at D=8);
+    (bf16: the `wgmma` kernel at D=64, the `mma.sync` kernel at D=8); and in
+    float32 with q, k and v rounded to TF32 first (a single TF32 pass: what
+    the float32 gate must catch), beside the sound float32 kernel, at those
+    shapes and at D = 128, 256 and 320 (`k1` runs these alone);
   - K2 with the centre tap of every window zeroed, at two shapes of phase 4;
   - the tiny config's `match()` on CUDA against the CPU (phase 5), with K1's
     scale off by 1% and with K2's centre tap zeroed;
@@ -32,7 +35,7 @@ does not pass its gate; the accuracy gate's faults are reported, caught or
 not. Needs one GPU; run from the repository root (`accuracy` runs the
 accuracy gate's readings alone):
 
-    python3 scripts/plant_faults_torch.py [accuracy]
+    python3 scripts/plant_faults_torch.py [accuracy | k1]
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from gfnet_tpu_torch.ops import kernels  # noqa: E402
-from gfnet_tpu_torch.ops.attention import entropy_invariant_scale, scaled_dot_product_attention  # noqa: E402
+from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, scaled_dot_product_attention,  # noqa: E402
+                                           tf32_round)
 from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, _window_patches,  # noqa: E402
                                                    local_corr_dq_plain)
 
@@ -69,20 +73,27 @@ def k1_stale_stage(q, k, v, scale):
     return REAL_K1(q, k, torch.roll(v, 64, dims=1), scale)
 
 
-def k2_centre_zeroed(query, target, flow, radius):
-    out = REAL_K2(query, target, flow, radius)
+def k1_tf32_single_pass(q, k, v, scale):
+    # q, k, v rounded to TF32 before the launch: their low halves are zero, so
+    # Q·Kᵀ is one TF32 pass and P·V two (P's own halves stay), as a float32
+    # kernel on single-pass TF32 would read
+    return REAL_K1(*(tf32_round(t) for t in (q, k, v)), scale)
+
+
+def k2_centre_zeroed(query, target, flow, radius, **kw):
+    out = REAL_K2(query, target, flow, radius, **kw)
     out[..., (2 * radius + 1) ** 2 // 2] = 0
     return out
 
 
-def k3_centre_dropped(grad, target, flow, radius):
+def k3_centre_dropped(grad, target, flow, radius, **kw):
     grad = grad.clone()
     grad[..., (2 * radius + 1) ** 2 // 2] = 0
-    return REAL_K3(grad, target, flow, radius)
+    return REAL_K3(grad, target, flow, radius, **kw)
 
 
-def k3_scale_off(grad, target, flow, radius):
-    return REAL_K3(grad, target, flow, radius) * 1.01
+def k3_scale_off(grad, target, flow, radius, **kw):
+    return REAL_K3(grad, target, flow, radius, **kw) * 1.01
 
 
 def _right_edge_last_column(target, flow, radius, query_rows):
@@ -128,7 +139,10 @@ def report(fault: str, gate: str, err: float, tol: float, caught: list) -> None:
                       "caught": err > tol}), flush=True)
 
 
-def kernel_faults(caught: list) -> None:
+def k1_faults(caught: list) -> None:
+    """The bf16 faults at the ViT and cross-view shapes; then float32: the
+    sound kernel (its reading must pass) and a single TF32 pass, at those
+    shapes, D = 128 and 256 (kv split) and 320 (column groups)."""
     gen = torch.Generator("cuda").manual_seed(1)
     for b, n, h, d in ((2, 1601, 16, 64), (2, 1600, 8, 8)):
         scale = 64**-0.5 if d == 64 else entropy_invariant_scale(8, n, 1024)
@@ -138,6 +152,22 @@ def kernel_faults(caught: list) -> None:
         for fault in (k1_scale_off, k1_tail_dropped, k1_stale_stage):
             err = (fault(q, k, v, scale).float() - want).abs().max().item()
             report(f"{fault.__name__} {[b, n, h, d]}", "k1", err, chip_smoke.K1_ATOL, caught)
+    for b, n, h, d in ((2, 1601, 16, 64), (2, 1600, 8, 8), (1, 6401, 16, 64), (2, 1024, 1, 128),
+                       (2, 1024, 1, 256), (2, 1024, 1, 320)):
+        scale = entropy_invariant_scale(8, n, 1024) if d == 8 else d**-0.5
+        q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda") for _ in range(3))
+        want = scaled_dot_product_attention(q, k, v, scale)
+        sound = (REAL_K1(q, k, v, scale) - want).abs().max().item()
+        caught.append(sound <= chip_smoke.K1_F32_ATOL)
+        print(json.dumps({"sound": f"k1 float32 {[b, n, h, d]}", "gate": "k1_f32", "max_abs_err": sound,
+                          "atol": chip_smoke.K1_F32_ATOL, "passes": sound <= chip_smoke.K1_F32_ATOL}), flush=True)
+        err = (k1_tf32_single_pass(q, k, v, scale) - want).abs().max().item()
+        report(f"k1_tf32_single_pass {[b, n, h, d]}", "k1_f32", err, chip_smoke.K1_F32_ATOL, caught)
+
+
+def kernel_faults(caught: list) -> None:
+    k1_faults(caught)
+    gen = torch.Generator("cuda").manual_seed(1)
     for r, c, t, g in ((7, 64, 32, 32), (2, 16, 280, 160)):
         query = torch.randn((2, g, g, c), generator=gen, device="cuda").to(torch.bfloat16)
         target = torch.randn((2, t, t, c), generator=gen, device="cuda").to(torch.bfloat16)
@@ -286,6 +316,9 @@ def main(argv=None) -> int:
         return 2
     chip_smoke.phase_device(torch)
     caught: list = []
+    if argv == ["k1"]:
+        k1_faults(caught)
+        return 0 if all(caught) else 1
     if argv != ["accuracy"]:
         kernel_faults(caught)
         tiny_faults(caught)

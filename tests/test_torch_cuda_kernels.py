@@ -41,6 +41,9 @@ def cuda_device():
     (1, 130, 600, 2, 32), (1, 1000, 1090, 2, 128),    # kv in several shared-memory chunks
     (1, 7, 7, 2, 128), (1, 77, 130, 3, 32),           # below one tile; nq != nk
     (2, 1024, 1024, 8, 12), (1, 130, 77, 2, 20), (1, 200, 300, 2, 100),  # padded to 16, 32, 128
+    (2, 1024, 1024, 1, 256), (1, 130, 77, 2, 200),    # D = 256 (kv split), and padded to it
+    (2, 1024, 1024, 1, 320), (1, 77, 130, 2, 512),    # column groups: two, padded; two, exact
+    (1, 200, 2100, 1, 128), (2, 1024, 1024, 1, 128),  # kv split over more ranges than one tile each
 ])
 def test_oneshot_attention_matches_plain(cuda_device, dtype, b, n, nk, h, d):
     gen = torch.Generator(cuda_device).manual_seed(0)
@@ -49,7 +52,8 @@ def test_oneshot_attention_matches_plain(cuda_device, dtype, b, n, nk, h, d):
     scale = entropy_invariant_scale(d, n, 1024)
     got = kernels.oneshot_attention(q, k, v, scale).float()
     want = scaled_dot_product_attention(q.float(), k.float(), v.float(), scale)
-    # bf16: output and PV operands rounded to 8 bits; float32: summation order only
+    # bf16: output and PV operands rounded to 8 bits; float32: summation order
+    # and the ~2^-22 of each product that three TF32 passes drop
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
@@ -93,18 +97,20 @@ def test_oneshot_attention_refuses_misaligned_bf16_d64(cuda_device, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_oneshot_attention_pads_a_head_dim_in_one_launch_and_refuses_above_128(cuda_device, dtype):
-    """D = 12 runs the D = 16 kernel on zero-padded copies, counted as one
-    launch; D = 129 raises with the limit in the message."""
+def test_oneshot_attention_pads_a_head_dim_in_one_launch_at_any_width(cuda_device, dtype):
+    """D = 12 runs the D = 16 kernel on zero-padded copies, D = 129 the D =
+    256 kernel and D = 300 two column groups (q, k padded to 320, v to 512),
+    each counted as one call."""
     gen = torch.Generator(cuda_device).manual_seed(4)
-    q, k, v = (torch.randn((1, 64, 2, 12), generator=gen, device=cuda_device).to(dtype) for _ in range(3))
-    before = kernels.oneshot_attention.launches
-    got = kernels.oneshot_attention(q, k, v, 0.3)
-    assert kernels.oneshot_attention.launches == before + 1
-    assert got.shape == q.shape and got.is_contiguous()
-    wide = torch.zeros((1, 8, 1, 129), dtype=dtype, device=cuda_device)
-    with pytest.raises(ValueError, match="above 128"):
-        kernels.oneshot_attention(wide, wide, wide, 0.1)
+    for d in (12, 129, 300):
+        q, k, v = (torch.randn((1, 64, 2, d), generator=gen, device=cuda_device).to(dtype) for _ in range(3))
+        before = kernels.oneshot_attention.launches
+        got = kernels.oneshot_attention(q, k, v, 0.3)
+        assert kernels.oneshot_attention.launches == before + 1
+        assert got.shape == q.shape and got.is_contiguous()
+        want = scaled_dot_product_attention(q.float(), k.float(), v.float(), 0.3)
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -260,9 +266,26 @@ def test_local_corr_refuses_a_layout_too_small(cuda_device):
         kernels.local_corr(q, q, fl, 7, k3_layout)
 
 
-def test_local_corr_refuses_what_tma_cannot_stage(cuda_device):
-    """A pixel that is not a multiple of 16 bytes, or a target that is not
-    16-byte aligned, cannot be staged by TMA or read in 16-byte vectors."""
+def test_local_correlation_pads_channels_tma_cannot_stage(cuda_device):
+    """`local_correlation` zero-pads a pixel that is not a multiple of 16
+    bytes (bf16 C = 12 and 4, float32 C = 6) and launches K2 and K3 with the
+    caller's 1/√C, dq sliced back; the kernels themselves refuse such a pixel,
+    and a target that is not 16-byte aligned."""
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    for dtype, c in ((torch.bfloat16, 12), (torch.bfloat16, 4), (torch.float32, 6)):
+        q = torch.randn((2, 10, 10, c), generator=gen, device=cuda_device).to(dtype).requires_grad_()
+        t = torch.randn((2, 20, 20, c), generator=gen, device=cuda_device).to(dtype)
+        fl = torch.rand((2, 10, 10, 2), generator=gen, device=cuda_device) * 2.2 - 1.1
+        before = kernels.launch_counts()
+        got = local_correlation(q, t, fl, 2)
+        got.backward(torch.ones_like(got))
+        after = kernels.launch_counts()
+        assert after["local_corr"] == before["local_corr"] + 1
+        assert after["local_corr_bwd"] == before["local_corr_bwd"] + 1
+        torch.testing.assert_close(got, _local_correlation_patch(q.detach(), t, fl, 2), rtol=1e-4, atol=1e-4)
+        assert q.grad.shape == q.shape
+        want_dq = local_corr_dq_plain(torch.ones_like(got), t, fl, 2).to(dtype).float()
+        torch.testing.assert_close(q.grad.float(), want_dq, rtol=1e-2, atol=1e-2)
     q = torch.zeros((1, 4, 4, 4), dtype=torch.bfloat16, device=cuda_device)
     fl = torch.zeros((1, 4, 4, 2), device=cuda_device)
     with pytest.raises(ValueError, match="16 bytes"):

@@ -234,6 +234,39 @@ def test_cli_test_runs_the_tiny_config_on_the_cpu(valdir, tmp_path, capsys):
     assert 0.0 <= batched["mace_synthetic_tiny"] <= 70.0
 
 
+@pytest.mark.parametrize("cli", ["test", "train"])
+def test_cli_builds_the_matcher_in_bf16_as_jax_does(cli, valdir, tmp_path, monkeypatch):
+    """Under `--tiny` (and whatever `amp` says) both CLIs build a bf16
+    matcher, as the JAX package's CLIs build `GFNetMatcher(cfg)`, whose
+    dtype defaults to bf16."""
+    import inspect
+
+    import jax.numpy as jnp
+
+    import gfnet_tpu.matcher.api as jax_api
+    import gfnet_tpu_torch.matcher.api as api
+
+    assert inspect.signature(jax_api.GFNetMatcher.__init__).parameters["dtype"].default == jnp.bfloat16
+    built = []
+
+    class Built(Exception):
+        pass
+
+    def record(cfg, **kw):
+        built.append(kw["dtype"])
+        raise Built
+
+    monkeypatch.setattr(api, "GFNetMatcher", record)
+    args = ["--tiny", "--device", "cpu", "--dataset", "synthetic_tiny", "--data_path", str(valdir),
+            "--dinov2_weights", str(tmp_path / "absent.npz")]
+    with pytest.raises(Built):
+        if cli == "test":
+            cli_test.main(args)
+        else:
+            cli_train.main(args + ["--workspace", str(tmp_path)], batches=iter(()))
+    assert built == [torch.bfloat16]
+
+
 def test_cli_test_asking_for_cuda_without_a_gpu_raises(valdir, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")

@@ -21,12 +21,13 @@ from gfnet_tpu.ops.attention import scaled_dot_product_attention as jax_sdpa
 from gfnet_tpu.ops.pallas.local_corr import local_correlation_pallas
 from gfnet_tpu.ops.pallas.oneshot_attention import oneshot_attention
 from gfnet_tpu_torch.ops import kernels
-from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, fused_attention,
-                                           scaled_dot_product_attention, streamed_attention_plain)
+from gfnet_tpu_torch.ops.attention import (attention_tf32_plain, column_group_attention_plain,
+                                           entropy_invariant_scale, fused_attention, kv_split_attention_plain,
+                                           scaled_dot_product_attention, streamed_attention_plain, tf32_round)
 from gfnet_tpu_torch.eval.flows import FLOW_KINDS, homography_flow, kernel_flow
 from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, corr_tile_boxes,
                                                    local_corr_dq_plain, local_corr_dq_tiled_plain,
-                                                   local_corr_tiled_plain, local_correlation)
+                                                   local_corr_tiled_plain, local_correlation, pad_channels)
 
 
 def T(a, dtype=torch.float32):
@@ -97,30 +98,87 @@ def test_streamed_attention_is_the_plain_function():
                                scaled_dot_product_attention(q, k, v, 0.4), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("d", [12, 32, 128, 20, 100])
+@pytest.mark.parametrize("d", [12, 32, 128, 20, 100, 200, 300])
 def test_pad_head_dim_equals_the_unpadded_plain_version(d):
     """K1's head-dim padding (`kernels.pad_head_dim`, which the CUDA wrapper
-    runs before a launch) on the plain version: D = 12, 20 and 100 are
-    zero-padded to 16, 32 and 128, D = 32 and 128 pass through. At D = 12
-    also against the Pallas kernel, which takes any head dim. float32, the
-    padded sums only add zeros: a sound run read at most 1.2e-7."""
+    runs before a launch) on the plain version: D = 12, 20, 100 and 200 are
+    zero-padded to 16, 32, 128 and 256, D = 32 and 128 pass through, D = 300
+    pads q and k to 320 and v to 512. At D = 12 also against the Pallas
+    kernel, which takes any head dim. float32, the padded sums only add
+    zeros: a sound run read at most 1.2e-7."""
     rng = np.random.default_rng(d)
     q, k, v = (rng.normal(0, 1, (1, 40, 2, d)).astype(np.float32) for _ in range(3))
     scale = d**-0.5
     got = kernels.pad_head_dim(scaled_dot_product_attention, T(q), T(k), T(v), scale)
     assert got.shape == (1, 40, 2, d)
     assert got.is_contiguous() or d in kernels.ATTENTION_HEAD_DIMS
+    if d == 300:  # the column groups' v: two groups of 256
+        torch.testing.assert_close(kernels.pad_head_dim(column_group_attention_plain, T(q), T(k), T(v), scale),
+                                   got, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(got, scaled_dot_product_attention(T(q), T(k), T(v), scale), rtol=1e-6, atol=1e-6)
     if d == 12:
         want = oneshot_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale, interpret=True)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
-def test_attention_head_dim_pads_up_and_refuses_above_128():
-    assert [kernels.attention_head_dim(d) for d in (1, 8, 12, 16, 24, 33, 64, 96, 128)] == \
-        [8, 8, 16, 16, 32, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="above 128"):
-        kernels.attention_head_dim(129)
+def test_attention_head_dim_pads_up_and_groups_columns_above_256():
+    """Every head dim has a width: the next instantiated one up to 256, and
+    above it q/k at a multiple of 64 and v in whole groups of 256 columns.
+    The column groups' decomposition (logits over the whole head dim, the
+    same for each group, then 256 output columns at a time) through the
+    padding, at D = 256 and 320, against the Pallas kernel in interpret mode,
+    float32 (a sound run read at most 8.3e-7)."""
+    assert [kernels.attention_head_dim(d) for d in (1, 8, 12, 16, 24, 33, 64, 96, 128, 129, 256, 257, 320, 600)] == \
+        [8, 8, 16, 16, 32, 64, 64, 128, 128, 256, 256, 320, 320, 640]
+    assert [kernels.attention_value_dim(d) for d in (12, 129, 256, 257, 320, 512, 600)] == \
+        [16, 256, 256, 512, 512, 512, 768]
+    rng = np.random.default_rng(320)
+    for d in (256, 320):
+        q, k, v = (rng.normal(0, 1, (1, 24, 2, d)).astype(np.float32) for _ in range(3))
+        got = kernels.pad_head_dim(column_group_attention_plain, T(q), T(k), T(v), d**-0.5)
+        assert got.shape == (1, 24, 2, d)
+        want = oneshot_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=d**-0.5, interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [8, 64])
+def test_three_tf32_passes_give_float32(d):
+    """The float32 kernel's numbers on the CPU: each product of Q·Kᵀ and P·V
+    as hi·hi + hi·lo + lo·hi of TF32 halves (rounded by bit operations as
+    `cvt.rna.tf32.f32` rounds) equals the float32 plain version within 1e-5,
+    where one TF32 pass reads at least ten times more (sound runs read 6.6e-7
+    and 8.9e-7, one pass 7.1e-4 and 8.9e-4)."""
+    rng = np.random.default_rng(d)
+    q, k, v = (T(rng.normal(0, 1, (2, 96, 2, d))) for _ in range(3))
+    want = scaled_dot_product_attention(q, k, v, d**-0.5)
+    three = (attention_tf32_plain(q, k, v, d**-0.5, passes=3) - want).abs().max().item()
+    one = (attention_tf32_plain(q, k, v, d**-0.5, passes=1) - want).abs().max().item()
+    assert three <= 1e-5 and one >= 10 * three, (three, one)
+    assert torch.equal(tf32_round(T([1.0, 1 + 2**-11, 1 + 3 * 2**-11, -(1 + 2**-11)])),
+                       T([1.0, 1 + 2**-10, 1 + 2**-9, -(1 + 2**-10)]))  # ties away from zero
+
+
+@pytest.mark.parametrize("nk,kv_split", [(130, 64), (300, 128)])
+def test_kv_split_merge_matches_oneshot_pallas(nk, kv_split):
+    """K1's kv split and merge (`kv_split_attention_plain`: each range's
+    unnormalised output, max and sum, combined by their log-sum-exp) against
+    the Pallas kernel, float32, and the split plan keeps whole tiles, at
+    least two a split, within the blocks the SMs hold (a sound run read
+    2.2e-7)."""
+    rng = np.random.default_rng(nk)
+    q = rng.normal(0, 1, (1, 40, 2, 16)).astype(np.float32)
+    k, v = (rng.normal(0, 1, (1, nk, 2, 16)).astype(np.float32) for _ in range(2))
+    want = oneshot_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=0.3, interpret=True)
+    got = kv_split_attention_plain(T(q), T(k), T(v), 0.3, kv_split)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert kernels.attention_splits(True, 2, 1024, 1024, 1, 128, 128, 132) == (8, 128)
+    assert kernels.attention_splits(False, 2, 1024, 1024, 1, 320, 512, 132) == (4, 256)  # float32: 2 an SM
+    assert kernels.attention_splits(True, 16, 1024, 1024, 1, 128, 128, 132) == (1, 1024)  # 128 blocks
+    assert kernels.attention_splits(True, 2, 1024, 1024, 8, 8, 8, 132) == (1, 1024)  # 128 blocks
+    assert kernels.attention_splits(True, 2, 1024, 1024, 1, 320, 512, 132) == (4, 256)  # 2 column groups
+    for args in ((False, 1, 200, 2100, 1, 8, 8, 132), (False, 2, 1024, 1024, 2, 32, 32, 132)):
+        splits, per = kernels.attention_splits(*args)
+        assert per % 64 == 0 and per >= 128 and (splits - 1) * per < args[3] <= splits * per
 
 
 def test_fused_attention_takes_plain_version_on_cpu():
@@ -220,6 +278,28 @@ def test_local_corr_dq_out_of_range_and_nonfinite_flow_is_zero(value):
     want = jax.grad(lambda qq: jnp.sum(local_correlation_pallas(
         qq, jnp.asarray(t), jnp.asarray(fl), 2, True) * jnp.asarray(grad)))(jnp.zeros((1, 4, 4, 8)))
     np.testing.assert_array_equal(np.asarray(want), 0.0)
+
+
+@pytest.mark.parametrize("c,storage", [(12, "bfloat16"), (6, "float32")])
+def test_local_correlation_padded_channels_match_pallas(c, storage):
+    """K2/K3 at a pixel that is not a whole number of 16-byte vectors: the
+    padding path (`pad_channels` on query and target, the caller's 1/√C, dq
+    sliced back to C) through the plain versions against the Pallas kernel
+    and its gradient in interpret mode, at the same storage-rounded values
+    (a sound run read at most 7.7e-7)."""
+    radius, g, h = 2, 6, 10
+    q, t, fl, grad = _corr_grad_inputs(radius, g, h, c, 13)
+    tdt, jdt = getattr(torch, storage), getattr(jnp, storage)
+    qs, ts = (T(a, tdt).float().numpy() for a in (q, t))  # the storage's values, as float32
+    want = local_correlation_pallas(jnp.asarray(qs), jnp.asarray(ts), jnp.asarray(fl), radius, True, jdt)
+    want_dq = jax.grad(lambda qq: jnp.sum(local_correlation_pallas(
+        qq, jnp.asarray(ts), jnp.asarray(fl), radius, True, jdt) * jnp.asarray(grad)))(jnp.asarray(qs))
+    pq, pt = pad_channels(T(q, tdt)), pad_channels(T(t, tdt))
+    assert pq.shape[-1] * pq.element_size() % 16 == 0 and pq.shape[-1] > c
+    got = _local_correlation_patch(pq, pt, T(fl), radius, scale=1.0 / math.sqrt(c))
+    dq = local_corr_dq_plain(T(grad), pt, T(fl), radius, scale=1.0 / math.sqrt(c))[..., :c]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(want_dq), rtol=1e-5, atol=1e-5)
 
 
 def test_local_correlation_gradient_reaches_the_query_only():
