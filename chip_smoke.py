@@ -15,10 +15,13 @@ Phases, one JSON line each:
      of a fused qkv projection as the ViT hands them over, against the plain
      version that repeats the kernels' schedule, then the main-path shapes in
      float32 (three TF32 passes, held to their own gate), then at the head
-     dims a config can give (32, 128, 256, 320 in two column groups, and 12
-     zero-padded to 16) and the ViT at 1120² (kv 6401), each in bf16 and
-     float32, D = 128 at B = 16 (no kv split), and the host's cost of one
-     launch;
+     dims a config can give (32, 128, 256, 12 zero-padded to 16, and above
+     256, where bf16 runs the wide kernel and float32 column groups: 320, 384,
+     512) and the ViT at 1120² (kv 6401), each in bf16 and float32, then in
+     bf16 D = 128 and 320 at B = 16 (no kv split) and D = 300 on ragged q and
+     kv (each row names its kernel; every bf16 row above 256 also against
+     the plain version that sums the logits box by box, as the kernel does),
+     and the host's cost of one launch;
   4. K2 (local_corr) against its plain version at every main-path shape, on
      a homography flow (the refiners' smooth flow: tiles stage their windows
      in shared memory) and a random one (the worst case: no tile stages),
@@ -276,40 +279,53 @@ def phase_k1(torch, exp_rate: float) -> dict:
               (16, 1025, 16, 64, 64**-0.5),
               (16, 1024, 8, 8, entropy_invariant_scale(8, 1024, 1024))]
     # head dims a config can give the cross-view decoder (nhead 2 over 64
-    # channels: D=32; nhead 1 over 128, 256, 320: D=128, 256 and 320, the
-    # last in two column groups; D=12, zero-padded to 16), and the ViT at
-    # 1120² (kv 6401, past the 4096 where the JAX package hands over to the
-    # library's flash kernel), each in bf16 and float32
+    # channels: D=32; nhead 1 over 128, 256, 320, 384, 512: D=128 to 512, the
+    # last three on the wide kernel in bf16 and in column groups in float32;
+    # D=12, zero-padded to 16), and the ViT at 1120² (kv 6401, past the 4096
+    # where the JAX package hands over to the library's flash kernel), each in
+    # bf16 and float32
     other = [(2, 1024, 2, 32, 32**-0.5), (2, 1024, 1, 128, 128**-0.5), (2, 1024, 8, 12, 12**-0.5),
-             (1, 6401, 16, 64, 64**-0.5), (2, 1024, 1, 256, 256**-0.5), (2, 1024, 1, 320, 320**-0.5)]
+             (1, 6401, 16, 64, 64**-0.5), (2, 1024, 1, 256, 256**-0.5), (2, 1024, 1, 320, 320**-0.5),
+             (2, 1024, 1, 384, 384**-0.5), (2, 1024, 1, 512, 512**-0.5)]
     # the six shapes contiguous, then the two ViT shapes as slices of a fused
     # qkv projection (token stride 3·H·D), which is how the ViT calls K1; the
     # six in float32 (the matcher built with dtype=torch.float32, and `learn`);
-    # D=128 with many blocks (no kv split)
+    # in bf16 D=128 and 320 with many blocks (no kv split), D=320 as slices
+    # of a fused projection (the wide kernel's maps over strided tokens), and
+    # D=300 (q, k and v padded to 320) on q of 77 rows and kv of 130 keys (a
+    # 6th entry)
     cases = ([(shape, False, bf16) for shape in shapes] + [(shape, True, bf16) for shape in shapes[:2]]
              + [(shape, False, f32) for shape in shapes]
              + [(shape, False, dt) for shape in other for dt in (bf16, f32)]
-             + [((16, 1024, 1, 128, 128**-0.5), False, bf16)])
+             + [((16, 1024, 1, 128, 128**-0.5), False, bf16), ((16, 1024, 1, 320, 320**-0.5), False, bf16),
+                ((2, 1024, 1, 320, 320**-0.5), True, bf16), ((1, 77, 2, 300, 300**-0.5, 130), False, bf16)])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rows = []
-    for (b, n, h, d, scale), fused, dtype in cases:
+    rows, wide = [], None
+    for (b, n, h, d, scale, *rest), fused, dtype in cases:
+        nk = rest[0] if rest else n
         if fused:
             qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(dtype)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         else:
-            q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
-        merges = kernels.oneshot_attention.merges
+            q = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn((b, nk, h, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+        merges, before = kernels.oneshot_attention.merges, dict(kernels.oneshot_attention.kernels)
         got = kernels.oneshot_attention(q, k, v, scale).float()
         merged = kernels.oneshot_attention.merges - merges
+        # the CUDA kernel the library reports it launched for this call
+        route = [name for name, n in kernels.oneshot_attention.kernels.items() if n != before.get(name, 0)]
+        if len(route) != 1:
+            raise AssertionError(f"K1 {(b, n, h, d)}: one call reported the kernels {route}")
         want = scaled_dot_product_attention(q.float(), k.float(), v.float(), scale)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         rel = err / want.abs().max().item()
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        dk, dv = kernels.attention_head_dim(d), kernels.attention_value_dim(d)
-        splits, kv_split = kernels.attention_splits(dtype == bf16, b, n, n, h, dk, dv, sms)
+        dk, dv = kernels.attention_head_dim(d), kernels.attention_value_dim(d, dtype == bf16)
+        splits, kv_split = kernels.attention_splits(dtype == bf16, b, n, nk, h, dk, dv, sms)
         atol = K1_ATOL if dtype == bf16 else K1_F32_ATOL
-        row = {"shape": [b, n, h, d], "dtype": str(dtype).split(".")[-1], "fused_qkv_slices": fused,
+        row = {"shape": [b, n, h, d], "kv": nk, "dtype": str(dtype).split(".")[-1], "fused_qkv_slices": fused,
+               "route": route[0],
                "kernel_head_dim": dk, "kernel_value_dim": dv, "kv_splits": splits, "merge_launched": merged,
                "scale": scale, "max_abs_err": err, "max_rel_err": rel, "atol": atol,
                "kernel_ms": cuda_ms(torch, lambda: kernels.oneshot_attention(q, k, v, scale), 20),
@@ -318,16 +334,16 @@ def phase_k1(torch, exp_rate: float) -> dict:
         # the function's work at its own D (a padded launch does more); a
         # float32 product is three TF32 products on the tensor cores, and the
         # float32 SIMT figure is kept beside it
-        flops, exps = 4 * b * n * n * h * d, b * h * n * n
+        flops, exps, elems = 4 * b * n * nk * h * d, b * h * n * nk, 2 * b * (n + nk) * h * d
         if dtype == bf16:
-            row["bound_ms"], row["bound_by"] = bound([(flops, PEAK_BF16_FLOPS)], 4 * b * n * h * d * 2, exps, exp_rate)
+            row["bound_ms"], row["bound_by"] = bound([(flops, PEAK_BF16_FLOPS)], elems * 2, exps, exp_rate)
         else:
-            row["bound_ms"], row["bound_by"] = bound([(3 * flops, PEAK_TF32_FLOPS)], 4 * b * n * h * d * 4,
-                                                     exps, exp_rate)
-            row["bound_simt_ms"], row["bound_simt_by"] = bound([(flops, PEAK_F32_FLOPS)], 4 * b * n * h * d * 4,
-                                                               exps, exp_rate)
-        if b == 2 and dtype == bf16 and d <= 256:  # the kernels' own schedule in PyTorch, in bf16 as the kernel runs it
-            streamed = streamed_attention_plain(q, k, v, scale).float()
+            row["bound_ms"], row["bound_by"] = bound([(3 * flops, PEAK_TF32_FLOPS)], elems * 4, exps, exp_rate)
+            row["bound_simt_ms"], row["bound_simt_by"] = bound([(flops, PEAK_F32_FLOPS)], elems * 4, exps, exp_rate)
+        if dtype == bf16 and (b == 2 or d > 256):
+            # the kernels' own schedule in PyTorch, in bf16 as the kernel runs
+            # it (above 256 the logits summed one 64-channel box at a time)
+            streamed = streamed_attention_plain(q, k, v, scale, box=64 if d > 256 else None).float()
             row["max_rel_err_vs_streamed"] = ((got - streamed).abs().max() / streamed.abs().max()).item()
             row["streamed_rtol"] = K1_STREAMED_RTOL
         emit("k1", **row)
@@ -339,9 +355,12 @@ def phase_k1(torch, exp_rate: float) -> dict:
         if merged != (splits > 1):
             raise AssertionError(f"K1 {row['shape']} {row['dtype']}: {merged} merges for {splits} kv splits")
         rows.append(row)
+        if (b, n, h, d) == (2, 1024, 1, 320) and dtype == bf16 and not fused:
+            wide = row
 
     k1_host_cost(torch, (shapes[0], shapes[2]))
-    return max(rows[:4], key=lambda r: r["kernel_ms"])  # the inference path's slowest shape
+    # the inference path's slowest shape, and the wide kernel's first row
+    return max(rows[:4], key=lambda r: r["kernel_ms"]), wide
 
 
 def host_cost(torch, phase: str, cases: dict, launchers: dict) -> dict:
@@ -714,6 +733,7 @@ def phase_flagship(torch, np) -> dict:
     H = m.estimate_homography(a1, b1, key=None)  # PRNGKey(0)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    k1_kernels = dict(kernels.oneshot_attention.kernels)  # K1's calls by the CUDA kernel launched
     peak_single = torch.cuda.max_memory_allocated()
 
     kernels.reset_launch_counts()
@@ -726,11 +746,13 @@ def phase_flagship(torch, np) -> dict:
           and bool(torch.isfinite(H).all()) and bool(torch.isfinite(Hb).all()))
     emit("flagship_outputs", H=H.cpu().tolist(), H_batched_finite=bool(torch.isfinite(Hb).all()),
          H_batched_shape=list(Hb.shape), launches_single=counts, launches_batched=counts_b,
-         expected_launches=want)
+         expected_launches=want, k1_kernels_single=k1_kernels)
     if not ok:
         raise AssertionError("flagship homographies are not finite (3,3)/(8,3,3)")
     if counts != want or counts_b != counts:
         raise AssertionError(f"launch counts {counts} / {counts_b}, expected {want}")
+    if sum(k1_kernels.values()) != counts["oneshot_attention"]:
+        raise AssertionError(f"K1's kernels {k1_kernels} do not add up to its {counts['oneshot_attention']} calls")
 
     # throughput (host clock around synchronized calls)
     def timed(fn, reps):
@@ -752,7 +774,7 @@ def phase_flagship(torch, np) -> dict:
               "phase_device_ms": {b: {k: v["device_kernel_ms"] for k, v in sp.items()}
                                   for b, sp in split.items()},
               "max_memory_allocated_single": peak_single,
-              "max_memory_allocated_batched": peak_batched, "launches": counts}
+              "max_memory_allocated_batched": peak_batched, "launches": counts, "k1_kernels": k1_kernels}
     emit("flagship", **result)
     return result, m
 
@@ -1594,7 +1616,7 @@ def main() -> int:
     try:
         info = timed("device", phase_device, torch)
         timed("build", phase_build)
-        k1 = timed("k1", phase_k1, torch, info["exp_per_s"])
+        k1, k1_wide = timed("k1", phase_k1, torch, info["exp_per_s"])
         k2 = timed("k2", phase_k2, torch)
         timed("tiny", phase_tiny, torch, np)
         flag, matcher = timed("flagship", phase_flagship, torch, np)
@@ -1612,6 +1634,14 @@ def main() -> int:
     # launches: per `estimate_homography` call for K1 and K2, per train step
     # for K3, which only the training path runs; and over the accuracy
     # phase's 200 evaluated pairs
+    # K1's wide kernel, off the flagship's path, with its row; its launches
+    # are the flagship pair's count of it, as the library reported them
+    k1_routes = [{"name": k1_wide["route"], "route": "cuda", "source": "gfnet_tpu_torch/csrc/oneshot_attention.cu",
+                  "replaces": "gfnet_tpu/ops/pallas/oneshot_attention.py:195",
+                  "launches": flag["k1_kernels"].get(k1_wide["route"], 0),
+                  "max_abs_err": k1_wide["max_abs_err"], "ms": k1_wide["kernel_ms"], "plain_ms": k1_wide["plain_ms"],
+                  "bound_ms": k1_wide["bound_ms"], "bound_by": k1_wide["bound_by"],
+                  "library_ms": k1_wide["library_ms"], "shape": k1_wide["shape"], "dtype": k1_wide["dtype"]}]
     summary = []
     for name, row, src, replaces, launches in (
         ("oneshot_attention", k1, "gfnet_tpu_torch/csrc/oneshot_attention.cu",
@@ -1630,7 +1660,9 @@ def main() -> int:
                         "library_ms": row["library_ms"], "shape": shape,
                         **({"flow": row["flow"], "ms_random_flow": row["ms_random_flow"]} if "flow" in row else {}),
                         "launches_per_train_step": train["launches_per_step"][name],
-                        "launches_accuracy": acc_launches[name]})
+                        "launches_accuracy": acc_launches[name],
+                        **({"timed_kernel": row["route"], "launches_by_kernel": flag["k1_kernels"], "routes": k1_routes}
+                           if name == "oneshot_attention" else {})})
     emit("total", seconds=time.perf_counter() - t_start, phase_seconds=seconds)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -20,7 +20,8 @@
 //
 // The kernels, chosen by type and head dim (8, 16, 32, 64, 128 or 256; the
 // wrapper zero-pads any other head dim up to 256 to the next of these, and
-// one above 256 to a multiple of 64 for q and k and of 256 for v):
+// one above 256 to a multiple of 64, for v too in bf16 and to whole groups of
+// 256 for v in float32):
 //  - bf16 with D = 64, 128, 256: `oneshot_attention_wgmma_kernel<D>`.
 //    Warpgroups own 64 q rows each (two a block, one at D = 256) and share a
 //    ring of 64-key K/V stages in shared memory (four, three at D = 256,
@@ -50,13 +51,41 @@
 //    `m16n8k16` above, with K fragments from `ldmatrix`; P·V is `m16n8k16`
 //    over 16 keys into D/8 accumulator n-tiles, with V fragments from
 //    `ldmatrix.trans`. `wgmma` is not worth its 64-row tile at k = 8.
-//  - bf16 above D = 256 (column groups): the same kernel at D = 0. Each
-//    block computes the logits over the whole (runtime) head dim, in k16
-//    steps whose Q and K fragments it reads from device memory (no head dim
-//    is too wide for shared memory that way), and the output of one group of
-//    256 columns of V, staged as above; the grid has one more dimension over
-//    the groups. Every group runs the same loop in the same order, so its
-//    logits, and so its softmax, equal the other groups' bit for bit.
+//  - bf16 above D = 256: `oneshot_attention_wide_kernel` (a decoder with
+//    `nhead: 1` over more than 256 channels). What bounds it: at
+//    (2,1024,1,320) the work is 2.7 GFLOP (2.7 µs at 989 TFLOP/s), 5.2 MB of
+//    q/k/v/out (1.6 µs at 3.35 TB/s) and 2.1 M exponentials (0.5 µs); at
+//    D = 512 4.3 GFLOP (4.3 µs), 8.4 MB (2.5 µs), the same exponentials
+//    (`utils/profiling.bound`): the tensor cores, where a 64-row block at
+//    D = 320 reads 80 KB of K and V a 64-key tile and, with 32 blocks, the
+//    kv range is split 4 ways. A Q box alone is 8 KB of 64 channels, a
+//    whole tile of K and V at D = 512 128 KB, so the ring's unit is one
+//    64 x 64 box, streamed by TMA (128-byte swizzle) in the order the
+//    products use it: per tile K0 K1 ... then the slab's V boxes, with Q
+//    resident (or, where Q and eight boxes would not fit beside each other,
+//    D > 1280, Q's boxes interleaved with K's). The ring takes the rest of
+//    the 227 KB (23 boxes at D = 320), so a tile and a half is in flight
+//    whatever D is. A block owns 64 q rows and up to 512 columns of v (a
+//    slab; wider v takes more slabs, each recomputing the logits), split
+//    over two warpgroups of at most 256 columns (128 float32 accumulator
+//    registers a thread); v is padded to a multiple of 64 only. Both
+//    warpgroups multiply S = Q·Kᵀ on `wgmma` over the same staged boxes in
+//    the same order (chosen over one warpgroup handing P to the other
+//    through shared memory: no barrier between them, and the logits, max
+//    and sum of the two are equal bit for bit), so the logits are computed
+//    once a warpgroup for all of its columns; each box's products are one
+//    committed group, and a box is left once the next box's group is in
+//    flight. P stays in registers as the A operand of P·V over the
+//    warpgroup's own V boxes. A third warpgroup loads the boxes (one lane
+//    starts each copy once its slot is free) and gives its registers to the
+//    two that multiply (`setmaxnreg`). Measured on the H100 at
+//    (2,1024,1,320): loads started by a consumer thread between its products
+//    took 1.5× the time of a producer of its own; and a branch that only some
+//    lanes take while products are in flight, or a warpgroup index the
+//    compiler cannot see is warp-uniform, makes `ptxas` serialise every
+//    `wgmma` (C7520; 1.45× the time, with 168 registers a thread and spills
+//    beside it), so the index is broadcast by `__shfl_sync` and a warp
+//    leaves a box by a predicated arrive.
 //  - float32 at every D: `oneshot_attention_tf32x3_kernel<DK, DV>`, on the
 //    tensor cores in three TF32 passes (numerics below). Four warps own 16 q
 //    rows each; K and V tiles (64 keys at D ≤ 64, 32 at 128, 16 at 256, 32
@@ -102,6 +131,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// K1's ablations for timing (scripts/profile_oneshot_parts_torch.py builds this
+// file a second time with the macro set; the package's library never does):
+// 0 the full softmax; 1 `dots`: the logits themselves as P, no max, no
+// exponential, no sum; 2 `max`: the running max and the rescale, P = the
+// shifted logits, no exponential, no sum; 3 `exp_bf16`: the exponentials by
+// `ex2.approx.ftz.bf16x2` of the shifted logits rounded to bf16, two a call.
+#ifndef GFNET_K1_ABLATION
+#define GFNET_K1_ABLATION 0
+#endif
 
 namespace {
 
@@ -160,15 +199,16 @@ __device__ __forceinline__ float quad_sum(float x) {
 // column 8j + 2t + (e & 1).
 
 // o / l to the (B, Nq, H, dv) output, rows r_lo and r_lo + 8, the n-tiles at
-// columns col0 onwards
+// columns col0 onwards (the first `no` of o's values a row pair)
 template <typename T, int NO>
 __device__ __forceinline__ void store_rows(const float (&o)[NO], float l_lo, float l_hi,
                                            T* __restrict__ out, int b, int h, int heads, int nq,
-                                           int r_lo, int t, int dv = NO * 2, int col0 = 0) {
+                                           int r_lo, int t, int dv = NO * 2, int col0 = 0, int no = NO) {
   const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
   T* ob = out + ((long long)b * nq * heads + h) * dv + col0;
 #pragma unroll
   for (int jd = 0; jd < NO / 4; ++jd) {
+    if (4 * jd >= no) break;
     const int col = 8 * jd + 2 * t;
     if (r_lo < nq) {
       T* p = ob + (long long)r_lo * heads * dv + col;
@@ -191,14 +231,14 @@ __device__ __forceinline__ void store_rows(const float (&o)[NO], float l_lo, flo
 
 // One kv split's rows, unnormalised, to the float32 workspace of `splits`
 // splits over R = B·H·Nq rows of dv columns: o at part[(split·R + row)·dv +
-// col0 + col] (row = bh·nq + r), then, by the group at col0 = 0, the running
-// max in the log2 domain (m2) and the row sum at part[splits·R·dv + split·R +
-// row] and splits·R further on.
+// col0 + col] (row = bh·nq + r; the first `no` of o's values), then, by the
+// group at col0 = 0, the running max in the log2 domain (m2) and the row sum
+// at part[splits·R·dv + split·R + row] and splits·R further on.
 template <int NO>
 __device__ __forceinline__ void store_partial(const float (&o)[NO], float m2_lo, float m2_hi,
                                               float l_lo, float l_hi, float* __restrict__ part,
                                               int splits, int split, int bh, int nq, int r_lo,
-                                              int t, int dv, int col0) {
+                                              int t, int dv, int col0, int no = NO) {
   l_lo = quad_sum(l_lo);
   l_hi = quad_sum(l_hi);
   const long long R = (long long)gridDim.y * nq;
@@ -211,8 +251,9 @@ __device__ __forceinline__ void store_partial(const float (&o)[NO], float m2_lo,
     float* po = part + (split * R + row) * dv + col0;
 #pragma unroll
     for (int jd = 0; jd < NO / 4; ++jd)
-      *reinterpret_cast<float2*>(po + 8 * jd + 2 * t) =
-          make_float2(o[4 * jd + 2 * half], o[4 * jd + 2 * half + 1]);
+      if (4 * jd < no)
+        *reinterpret_cast<float2*>(po + 8 * jd + 2 * t) =
+            make_float2(o[4 * jd + 2 * half], o[4 * jd + 2 * half + 1]);
     if (col0 == 0 && t == 0) {
       ml[split * R + row] = half ? m2_hi : m2_lo;
       ml[(splits + split) * R + row] = half ? l_hi : l_lo;
@@ -314,6 +355,7 @@ __device__ __forceinline__ void split_frag(float a0, float a1, float a2, float a
 
 constexpr int kF32Warps = 4;  // 16 q rows each
 constexpr int kF32Rows = 16 * kF32Warps;
+constexpr int kF32GroupCols = 256;  // output columns of a float32 column group
 
 // DK == DV: D in {8, 16, 32, 64, 128, 256}. DK == 0: a column group of DV =
 // 256 output columns, logits over a runtime head dim read from device memory.
@@ -544,6 +586,15 @@ template <int NO>
 __device__ __forceinline__ void softmax_step(float (&s)[32], float (&o)[NO], uint32_t (&pa)[4][4],
                                              float& m_lo, float& m_hi, float& l_lo, float& l_hi,
                                              float c, int first_key, int kv_end, int t) {
+#if GFNET_K1_ABLATION == 1
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(s[4 * j + 0], s[4 * j + 1]);
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+  }
+  l_lo = l_hi = 1.f;
+  return;
+#endif
   if (first_key + kStep > kv_end) {  // the ragged tail: mask by index
 #pragma unroll
     for (int i = 0; i < 32; ++i)
@@ -571,6 +622,31 @@ __device__ __forceinline__ void softmax_step(float (&s)[32], float (&o)[NO], uin
     m_hi = mn_hi;
   }
   const float nb_lo = -mn_lo * c, nb_hi = -mn_hi * c;
+#if GFNET_K1_ABLATION == 2
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(fmaf(s[4 * j + 0], c, nb_lo), fmaf(s[4 * j + 1], c, nb_lo));
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(fmaf(s[4 * j + 2], c, nb_hi), fmaf(s[4 * j + 3], c, nb_hi));
+  }
+  l_lo = l_hi = 1.f;
+  return;
+#elif GFNET_K1_ABLATION == 3
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint32_t p01, p23;
+    asm("ex2.approx.ftz.bf16x2 %0, %1;\n"
+        : "=r"(p01)
+        : "r"(pack_bf16(fmaf(s[4 * j + 0], c, nb_lo), fmaf(s[4 * j + 1], c, nb_lo))));
+    asm("ex2.approx.ftz.bf16x2 %0, %1;\n"
+        : "=r"(p23)
+        : "r"(pack_bf16(fmaf(s[4 * j + 2], c, nb_hi), fmaf(s[4 * j + 3], c, nb_hi))));
+    l_lo += __uint_as_float(p01 << 16) + __uint_as_float(p01 & 0xFFFF0000u);
+    l_hi += __uint_as_float(p23 << 16) + __uint_as_float(p23 & 0xFFFF0000u);
+    pa[j / 2][(j % 2) * 2 + 0] = p01;
+    pa[j / 2][(j % 2) * 2 + 1] = p23;
+  }
+  return;
+#endif
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const float p0 = fast_exp2(fmaf(s[4 * j + 0], c, nb_lo));
@@ -621,8 +697,10 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
+// waits until at most N committed groups of this warp's products are pending
+template <int N = 0>
 __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keeps the compiler from moving reads or writes of an accumulator across
@@ -867,10 +945,280 @@ oneshot_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                          nq, r_lo, t, D, 0);
 }
 
-// ------------------------------------------- bf16, D = 8, 16, 32; column groups
+// ----------------------------------------------------------- bf16 above D = 256
+// The ring's unit is one 64 x 64 box (8 KB), not a K/V tile, so its depth does
+// not depend on the head dim. A block owns 64 q rows and up to eight boxes of
+// v's columns (a slab), split over two warpgroups of at most four boxes (256
+// columns: 128 float32 accumulator registers a thread). Each box of the stream
+// is one of: a Q box (only where Q is not resident), a K box, a V box of the
+// slab; per 64-key tile the stream is Q0 K0 Q1 K1 ... or K0 K1 ..., then V.
+constexpr int kWideSmemBytes = 232448;  // all a block may use: one block an SM
+constexpr int kWideMinRing = 8;         // boxes; see the producer's note below
+constexpr int kWideGroupBoxes = 4;      // v's boxes a warpgroup owns at most
+constexpr int kWideSlabBoxes = 2 * kWideGroupBoxes;
+constexpr int kWideFixedBytes = 1024 + 8;  // the swizzle's alignment; the Q barrier
+constexpr int kWideBoxCost = kBoxBytes + 16;  // a ring box and its two barriers
+
+struct WideStream {
+  uint32_t qs, ring_base, full, empty;  // shared addresses: resident Q, ring, barriers
+  int ring;                             // boxes in the ring
+  int kb, nv, per_tile;                 // K boxes (DK / 64), the slab's V boxes, boxes a tile
+  bool stream_q;                        // Q's boxes pass through the ring with K's
+  int vb0, h, b, row0, kv0, total;      // the slab's first V box, coordinates; boxes in all
+};
+
+// box r of kv tile `tile`'s part of the stream into ring slot `slot`, on the
+// slot's full barrier
+__device__ __forceinline__ void wide_load(const WideStream& w, const CUtensorMap* map_q,
+                                          const CUtensorMap* map_k, const CUtensorMap* map_v, int slot,
+                                          int tile, int r) {
+  const uint32_t dst = w.ring_base + slot * kBoxBytes, bar = w.full + 8 * slot;
+  const int key = w.kv0 + tile * kStep, kpart = w.stream_q ? 2 * w.kb : w.kb;
+  mbar_expect_tx(bar, kBoxBytes);
+  if (r >= kpart)
+    tma_load_box(dst, map_v, bar, 64 * (w.vb0 + r - kpart), w.h, key, w.b);
+  else if (w.stream_q && r % 2 == 0)
+    tma_load_box(dst, map_q, bar, 64 * (r / 2), w.h, w.row0, w.b);
+  else
+    tma_load_box(dst, map_k, bar, 64 * (w.stream_q ? r / 2 : r), w.h, key, w.b);
+}
+
+// The producer (one lane of a warp of its own, so that no consumer runs its
+// branches while products are in flight) starts the stream's box copies in order,
+// each once its slot has been left by every consumer warp. It cannot
+// deadlock: a warpgroup holds (has waited for and not yet left) at most two
+// Q/K boxes, or V boxes of one tile of the slab (eight at most), all within
+// `kWideMinRing` of the box it waits for, so the box that slot last held has
+// been left.
+__device__ __forceinline__ void wide_produce(const WideStream& w, const CUtensorMap* map_q,
+                                             const CUtensorMap* map_k, const CUtensorMap* map_v) {
+  for (int i = 0, slot = 0, round = 0, tile = 0, r = 0; i < w.total; ++i) {
+    if (round > 0) mbar_wait(w.empty + 8 * slot, (round - 1) & 1);
+    wide_load(w, map_q, map_k, map_v, slot, tile, r);
+    if (++slot == w.ring) {
+      slot = 0;
+      ++round;
+    }
+    if (++r == w.per_tile) {
+      r = 0;
+      ++tile;
+    }
+  }
+}
+
+// A box of the stream as a consumer finds it: its ring slot and the parity
+// of its round there (the phase its full barrier completes)
+struct RingPos {
+  int slot;
+  int phase;
+};
+
+// the box n boxes on in the stream, for 0 <= n <= ring (at most one wrap; the
+// consumers step by at most the eight V boxes of a slab, and the ring holds
+// at least `kWideMinRing` = 8): carried forward by a select, no division
+static_assert(kWideMinRing >= kWideSlabBoxes, "a consumer's step must not wrap the ring twice");
+
+__device__ __forceinline__ RingPos ring_add(const WideStream& w, RingPos p, int n) {
+  const int slot = p.slot + n;
+  const bool wrap = slot >= w.ring;
+  return {wrap ? slot - w.ring : slot, p.phase ^ static_cast<int>(wrap)};
+}
+
+__device__ __forceinline__ void wide_wait(const WideStream& w, RingPos p) {
+  mbar_wait(w.full + 8 * p.slot, p.phase);
+}
+
+__device__ __forceinline__ uint32_t wide_box(const WideStream& w, RingPos p) {
+  return w.ring_base + p.slot * kBoxBytes;
+}
+
+// this warp leaves box p: lane 0 arrives for the warp, by a predicate and
+// not a branch (a branch that only some lanes take, while products are in
+// flight, makes `ptxas` serialise them)
+__device__ __forceinline__ void wide_leave(const WideStream& w, RingPos p, int lane) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(w.empty + 8 * p.slot),
+      "r"(lane)
+      : "memory");
+}
+
+// One warpgroup's loop over the kv tiles: S = Q·Kᵀ box by box (each box's four
+// k16 products one committed group; a box is left once the next box's group
+// is in flight and its own has completed), the online softmax, then O += P·V
+// over this warpgroup's `mine` boxes of V (columns from box `off` of the slab),
+// whose other boxes it waits for and leaves too. Every warpgroup runs the same
+// products in the same order on the same boxes, so its logits, and so its
+// running max and sum, equal the other's bit for bit. NB, the products' box
+// count, is the same in both warpgroups of a block (`ptxas` serialises the
+// products of a code path that only some warps take): where `mine` is one
+// less, the last product repeats the warpgroup's last box and is not stored.
+template <int NB>
+__device__ __forceinline__ void wide_consume(const WideStream& w, int off, int mine, bf16* __restrict__ out,
+                                             float* __restrict__ part, int nq, int heads, int dv,
+                                             float c, int kv1, int tiles, int splits, int split) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_lo = w.row0 + warp * 16 + g;
+  float o[32 * NB], s[32];
+#pragma unroll
+  for (int i = 0; i < 32 * NB; ++i) o[i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  uint32_t pa[4][4];
+  const int step = w.stream_q ? 2 : 1;  // boxes of Q and K a channel box
+
+  // S += Q·K of channel box ch, whose first box in the stream is `p` (Q's
+  // where Q streams, then K's; else K's), as one committed group
+  auto qk_box = [&](RingPos p, int ch) {
+    const RingPos pk = w.stream_q ? ring_add(w, p, 1) : p;
+    if (w.stream_q) wide_wait(w, p);
+    wide_wait(w, pk);
+    const uint32_t qa = w.stream_q ? wide_box(w, p) : w.qs + ch * kBoxBytes, ka = wide_box(w, pk);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // 16 channels = 32 bytes along a row
+      wgmma_m64n64k16_ss(s, smem_desc(qa + 32 * kk), smem_desc(ka + 32 * kk), ch > 0 || kk > 0);
+    wgmma_commit();
+  };
+  // this warp leaves the K (and Q) boxes of the channel box at `p`
+  auto leave_qk = [&](RingPos p) {
+    wide_leave(w, w.stream_q ? ring_add(w, p, 1) : p, lane);
+    if (w.stream_q) wide_leave(w, p, lane);
+  };
+
+  RingPos box = {0, 0};  // the tile's first box in the stream
+  for (int j = 0; j < tiles; ++j) {
+    RingPos cur = box;  // the channel box's first box
+    qk_box(cur, 0);
+    for (int ch = 1; ch < w.kb; ++ch) {
+      const RingPos prev = cur;
+      cur = ring_add(w, cur, step);
+      qk_box(cur, ch);
+      wgmma_wait<1>();  // box ch - 1's group has completed
+      fence_regs(s);
+      leave_qk(prev);
+    }
+    wgmma_wait();
+    fence_regs(s);
+    leave_qk(cur);
+    softmax_step(s, o, pa, m_lo, m_hi, l_lo, l_hi, c, w.kv0 + j * kStep, kv1, t);
+
+    const RingPos vbox = ring_add(w, cur, step);  // the tile's first V box
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int vc = 0; vc < NB; ++vc) {
+      const RingPos iv = ring_add(w, vbox, off + min(vc, mine - 1));
+      wide_wait(w, iv);
+#pragma unroll
+      for (int kb2 = 0; kb2 < 4; ++kb2)  // 16 keys = 16 rows of V
+        wgmma_m64n64k16<1>(&o[32 * vc], pa[kb2], smem_desc(wide_box(w, iv) + 16 * 128 * kb2), 1);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(o);
+    for (int vc = 0; vc < w.nv; ++vc) {
+      const RingPos iv = ring_add(w, vbox, vc);
+      if (vc < off || vc >= off + mine) wide_wait(w, iv);  // the other warpgroup's: landed before it is left
+      wide_leave(w, iv, lane);
+    }
+    box = ring_add(w, vbox, w.nv);
+  }
+  const int col0 = (w.vb0 + off) * 64;
+  if (part == nullptr)
+    store_rows<bf16, 32 * NB>(o, l_lo, l_hi, out, w.b, w.h, heads, nq, r_lo, t, dv, col0, 32 * mine);
+  else
+    store_partial<32 * NB>(o, m_lo * c, m_hi * c, l_lo, l_hi, part, splits, split, blockIdx.y, nq, r_lo, t,
+                           dv, col0, 32 * mine);
+}
+
+// grid (q rows / 64, B·H, kv splits × slabs), 384 threads: two consumer
+// warpgroups (the second idle where the slab has one box) and the producer's,
+// which gives its registers to them (`setmaxnreg`: 40 a thread for it, 232
+// for theirs, of the 168 a thread that 384 threads start with).
+constexpr int kWideThreads = 384;
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+oneshot_attention_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
+                              float* __restrict__ part, int nq, int nk, int heads, int dk, int dv,
+                              float c, int kv_split, int slabs, int ring, int stream_q) {
+  extern __shared__ uint8_t smem_raw[];
+  WideStream w;
+  w.qs = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's period
+  w.kb = dk / 64;
+  w.stream_q = stream_q != 0;
+  w.ring = ring;
+  w.ring_base = w.qs + (w.stream_q ? 0 : w.kb * kBoxBytes);
+  w.full = w.ring_base + ring * kBoxBytes;
+  w.empty = w.full + 8 * ring;
+  const uint32_t qbar = w.empty + 8 * ring;
+  w.b = blockIdx.y / heads;
+  w.h = blockIdx.y % heads;
+  w.row0 = blockIdx.x * 64;
+  const int slab = blockIdx.z % slabs, split = blockIdx.z / slabs;
+  w.kv0 = split * kv_split;
+  const int kv1 = min(nk, w.kv0 + kv_split);
+  const int tiles = (kv1 - w.kv0 + kStep - 1) / kStep;
+  w.vb0 = slab * kWideSlabBoxes;
+  w.nv = min(kWideSlabBoxes, dv / 64 - w.vb0);
+  w.per_tile = (w.stream_q ? 2 * w.kb : w.kb) + w.nv;
+  w.total = tiles * w.per_tile;
+  const int nb0 = (w.nv + 1) / 2, nb1 = w.nv / 2;  // the two warpgroups' V boxes
+  const int groups = nb1 > 0 ? 2 : 1;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < ring; ++st) {
+      mbar_init(w.full + 8 * st, 1);           // the producer, with the box's bytes
+      mbar_init(w.empty + 8 * st, 4 * groups);  // one lane of every warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the warpgroup, broadcast from lane 0 so that the compiler knows it is the
+  // same in every lane of a warp: the branches on it do not diverge a warp
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // the producer's
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      if (!w.stream_q) {
+        mbar_expect_tx(qbar, w.kb * kBoxBytes);
+        for (int ch = 0; ch < w.kb; ++ch)
+          tma_load_box(w.qs + ch * kBoxBytes, &map_q, qbar, 64 * ch, w.h, w.row0, w.b);
+      }
+      wide_produce(w, &map_q, &map_k, &map_v);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  if (wg >= groups) return;
+  if (!w.stream_q) mbar_wait(qbar, 0);
+  const int mine = wg == 0 ? nb0 : nb1, off = wg == 0 ? 0 : nb0;
+  const int splits = gridDim.z / slabs;
+  switch (nb0) {  // the same in every warp of the block
+    case 1:
+      wide_consume<1>(w, off, mine, out, part, nq, heads, dv, c, kv1, tiles, splits, split);
+      break;
+    case 2:
+      wide_consume<2>(w, off, mine, out, part, nq, heads, dv, c, kv1, tiles, splits, split);
+      break;
+    case 3:
+      wide_consume<3>(w, off, mine, out, part, nq, heads, dv, c, kv1, tiles, splits, split);
+      break;
+    default:
+      wide_consume<4>(w, off, mine, out, part, nq, heads, dv, c, kv1, tiles, splits, split);
+      break;
+  }
+}
+
+// ------------------------------------------------------------ bf16, D = 8, 16, 32
 constexpr int kMmaWarps = 8;                 // 16 q rows each
 constexpr int kMmaSmemBytes = 64 * 1024;     // K and V chunk together
-constexpr int kGroupCols = 256;              // output columns of a column group
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -921,43 +1269,34 @@ __device__ __forceinline__ uint32_t kv_piece(uint32_t base, int row, int pc) {
 // `ldmatrix` 8x8 tile is eight such pieces: plain, a lane gets (key g, d
 // 2t,2t+1), the B fragment of Q·Kᵀ; transposed, (keys 2t,2t+1, d g), the B
 // fragment of P·V. `chunk` keys (a multiple of 64) lie in shared memory at a
-// time, K rows then V rows, each swizzled by `kv_piece`. D = 0: a column
-// group of 256 output columns, logits over the runtime `dk` channels of q
-// and k, whose fragments come from device memory; only V is staged.
-// blockIdx.z is the kv split times `groups` plus the group.
+// time, K rows then V rows, each swizzled by `kv_piece`.
 template <int D>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 oneshot_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, bf16* __restrict__ out,
-                             float* __restrict__ part, int nq, int nk, int heads, int dk, int dv,
+                             float* __restrict__ part, int nq, int nk, int heads,
                              long long q_bs, long long q_ts, long long k_bs, long long k_ts,
-                             long long v_bs, long long v_ts, float c, int chunk, int groups,
-                             int kv_split) {
-  static_assert(D == 0 || D == 8 || D == 16 || D == 32, "head dim 8, 16, 32, or 0 (column groups)");
-  constexpr bool kGroups = D == 0;
-  constexpr int DV = kGroups ? kGroupCols : D;
-  constexpr int kPieces = DV / 8, kRowBytes = 2 * DV;
+                             long long v_bs, long long v_ts, float c, int chunk, int kv_split) {
+  static_assert(D == 8 || D == 16 || D == 32, "head dim 8, 16 or 32");
+  constexpr int kPieces = D / 8, kRowBytes = 2 * D;
   constexpr int kSteps = D == 8 ? 1 : D / 16;  // k-steps of Q·Kᵀ (m16n8k8 at D = 8, else k16)
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  const uint32_t ks = smem_u32(smem_raw), vs = kGroups ? ks : ks + chunk * kRowBytes;
+  const uint32_t ks = smem_u32(smem_raw), vs = ks + chunk * kRowBytes;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int r_lo = blockIdx.x * kMmaWarps * 16 + warp * 16 + g;
   const int r_hi = r_lo + 8;
-  const int width = kGroups ? dk : D;  // the logits' head dim
-  const int grp = blockIdx.z % groups, split = blockIdx.z / groups;
-  const int kv0 = split * kv_split, kv1 = min(nk, kv0 + kv_split);
+  const int kv0 = blockIdx.z * kv_split, kv1 = min(nk, kv0 + kv_split);
 
-  // Q as A fragments, four registers a k16 step (two at D = 8); rows past nq
-  // are 0 (column groups: read each step, rows past nq read row nq - 1)
-  const bf16* qb = q + b * q_bs + h * width;
-  uint32_t qa[D == 8 ? 2 : kGroups ? 1 : 4 * kSteps];
+  // Q as A fragments, four registers a k16 step (two at D = 8); rows past nq are 0
+  const bf16* qb = q + b * q_bs + h * D;
+  uint32_t qa[D == 8 ? 2 : 4 * kSteps];
   if constexpr (D == 8) {
     qa[0] = r_lo < nq ? load_pair(qb + r_lo * q_ts + 2 * t) : 0u;
     qa[1] = r_hi < nq ? load_pair(qb + r_hi * q_ts + 2 * t) : 0u;
-  } else if constexpr (!kGroups) {
+  } else {
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk) {
       const int col = 16 * kk + 2 * t;
@@ -972,9 +1311,8 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   for (int i = 0; i < 4 * kPieces; ++i) o[i] = 0.f;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
 
-  const bf16* kb = k + b * k_bs + h * width;
-  const int col0 = kGroups ? grp * DV : 0;  // this block's output columns
-  const bf16* vb = v + b * v_bs + (long long)h * (kGroups ? dv : D) + col0;
+  const bf16* kb = k + b * k_bs + h * D;
+  const bf16* vb = v + b * v_bs + (long long)h * D;
   for (int c0 = kv0; c0 < kv1; c0 += chunk) {
     const int cnt = min(chunk, kv1 - c0);
     const int rows = (cnt + kStep - 1) / kStep * kStep;  // zero rows fill the last step
@@ -983,7 +1321,7 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
       const int row = i / kPieces, pc = i % kPieces;
       const bool valid = row < cnt;
       const long long tok = valid ? c0 + row : kv0;
-      if constexpr (!kGroups) cp_async16(kv_piece<kPieces>(ks, row, pc), kb + tok * k_ts + pc * 8, valid);
+      cp_async16(kv_piece<kPieces>(ks, row, pc), kb + tok * k_ts + pc * 8, valid);
       cp_async16(kv_piece<kPieces>(vs, row, pc), vb + tok * v_ts + pc * 8, valid);
     }
     cp_async_commit();
@@ -995,21 +1333,7 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = 0.f;
       uint32_t f[4];
-      if constexpr (kGroups) {
-        const bf16* q_lo = qb + (long long)min(r_lo, nq - 1) * q_ts + 2 * t;
-        const bf16* q_hi = qb + (long long)min(r_hi, nq - 1) * q_ts + 2 * t;
-#pragma unroll 4  // dk is a multiple of 64: loads in flight
-        for (int kk = 0; kk < dk / 16; ++kk) {  // the same order in every group
-          const uint32_t a[4] = {load_pair(q_lo + 16 * kk), load_pair(q_hi + 16 * kk),
-                                 load_pair(q_lo + 16 * kk + 8), load_pair(q_hi + 16 * kk + 8)};
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int key = min(c0 + s0 + 8 * j + g, kv1 - 1);  // past the range: masked
-            const bf16* kr = kb + key * k_ts + 16 * kk + 2 * t;
-            mma_k16(&s[4 * j], a, load_pair(kr), load_pair(kr + 8));
-          }
-        }
-      } else if constexpr (D == 8) {
+      if constexpr (D == 8) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {  // 32 keys: one tile per n-tile
           ldmatrix_x4(f, kv_piece<1>(ks, s0 + 32 * half + lane, 0));
@@ -1054,10 +1378,10 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     }
   }
   if (part == nullptr)
-    store_rows<bf16, 4 * kPieces>(o, l_lo, l_hi, out, b, h, heads, nq, r_lo, t, kGroups ? dv : D, col0);
+    store_rows<bf16, 4 * kPieces>(o, l_lo, l_hi, out, b, h, heads, nq, r_lo, t);
   else
-    store_partial<4 * kPieces>(o, m_lo * c, m_hi * c, l_lo, l_hi, part, gridDim.z / groups, split,
-                               blockIdx.y, nq, r_lo, t, kGroups ? dv : D, col0);
+    store_partial<4 * kPieces>(o, m_lo * c, m_hi * c, l_lo, l_hi, part, gridDim.z, blockIdx.z, blockIdx.y,
+                               nq, r_lo, t, D, 0);
 }
 
 // ------------------------------------------------------------------ launchers
@@ -1166,11 +1490,39 @@ cudaError_t launch_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
+// The ring's boxes and whether Q streams through it: Q stays resident where
+// the ring keeps at least `kWideMinRing` boxes beside it (DK ≤ 1280), and the
+// ring takes the rest of the block's shared memory.
+void wide_layout(int dk, int* ring, int* stream_q) {
+  const int kb = dk / 64;
+  *stream_q = (kWideSmemBytes - kWideFixedBytes - kb * kBoxBytes) / kWideBoxCost < kWideMinRing;
+  *ring = (kWideSmemBytes - kWideFixedBytes - (*stream_q ? 0 : kb * kBoxBytes)) / kWideBoxCost;
+}
+
+cudaError_t launch_wide(const Args& a) {
+  constexpr auto kernel = oneshot_attention_wide_kernel;
+  CUtensorMap map_q, map_k, map_v;
+  if (!bhnd_tensor_map(&map_q, a.q, a.batch, a.nq, a.heads, a.dk, a.q_bs, a.q_ts, 64) ||
+      !bhnd_tensor_map(&map_k, a.k, a.batch, a.nk, a.heads, a.dk, a.k_bs, a.k_ts, kStep) ||
+      !bhnd_tensor_map(&map_v, a.v, a.batch, a.nk, a.heads, a.dv, a.v_bs, a.v_ts, kStep))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_dynamic_smem<kernel>(kWideSmemBytes);
+  if (err != cudaSuccess) return err;
+  int ring, stream_q;
+  wide_layout(a.dk, &ring, &stream_q);
+  const int smem = kWideFixedBytes + (stream_q ? 0 : a.dk / 64 * kBoxBytes) + ring * kWideBoxCost;
+  const int slabs = (a.dv / 64 + kWideSlabBoxes - 1) / kWideSlabBoxes;
+  const dim3 grid((a.nq + 63) / 64, a.batch * a.heads, a.splits * slabs);
+  kernel<<<grid, kWideThreads, smem, a.stream>>>(map_q, map_k, map_v, static_cast<bf16*>(a.out),
+                                        a.splits > 1 ? a.work : nullptr, a.nq, a.nk, a.heads, a.dk, a.dv,
+                                        a.scale * kLog2e, a.kv_split, slabs, ring, stream_q);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_mma(const Args& a) {
   constexpr auto kernel = oneshot_attention_mma_kernel<D>;
-  constexpr int DV = D == 0 ? kGroupCols : D;
-  constexpr int kKeyBytes = D == 0 ? 2 * DV : 4 * D;  // shared memory a key: V alone for column groups
+  constexpr int kKeyBytes = 4 * D;  // shared memory a key: K and V
   cudaError_t err = allow_dynamic_smem<kernel>(kMmaSmemBytes);
   if (err != cudaSuccess) return err;
   // the whole kv range of a block if it fits, else chunks that fill the
@@ -1178,33 +1530,57 @@ cudaError_t launch_mma(const Args& a) {
   const int range = a.kv_split < a.nk ? a.kv_split : a.nk;
   const int cap = kMmaSmemBytes / kKeyBytes, whole = (range + kStep - 1) / kStep * kStep;
   const int chunk = whole < cap ? whole : cap;
-  const int groups = a.dv / DV;
-  const dim3 grid((a.nq + kMmaWarps * 16 - 1) / (kMmaWarps * 16), a.batch * a.heads, a.splits * groups);
+  const dim3 grid((a.nq + kMmaWarps * 16 - 1) / (kMmaWarps * 16), a.batch * a.heads, a.splits);
   kernel<<<grid, kMmaWarps * 32, chunk * kKeyBytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<bf16*>(a.out), a.splits > 1 ? a.work : nullptr, a.nq, a.nk, a.heads, a.dk, a.dv,
-      a.q_bs, a.q_ts, a.k_bs, a.k_ts, a.v_bs, a.v_ts, a.scale * kLog2e, chunk, groups, a.kv_split);
+      static_cast<bf16*>(a.out), a.splits > 1 ? a.work : nullptr, a.nq, a.nk, a.heads, a.q_bs, a.q_ts,
+      a.k_bs, a.k_ts, a.v_bs, a.v_ts, a.scale * kLog2e, chunk, a.kv_split);
   return cudaGetLastError();
 }
 
-cudaError_t launch(const Args& a, bool is_bf16) {
-  if (a.dk > 256)  // column groups of 256 output columns
-    return is_bf16 ? launch_mma<0>(a) : launch_f32<0, kGroupCols>(a);
-  switch (a.dk) {
-    case 8:
-      return is_bf16 ? launch_mma<8>(a) : launch_f32<8, 8>(a);
-    case 16:
-      return is_bf16 ? launch_mma<16>(a) : launch_f32<16, 16>(a);
-    case 32:
-      return is_bf16 ? launch_mma<32>(a) : launch_f32<32, 32>(a);
-    case 64:
-      return is_bf16 ? launch_wgmma<64>(a) : launch_f32<64, 64>(a);
-    case 128:
-      return is_bf16 ? launch_wgmma<128>(a) : launch_f32<128, 128>(a);
-    case 256:
-      return is_bf16 ? launch_wgmma<256>(a) : launch_f32<256, 256>(a);
-    default:
-      return cudaErrorInvalidValue;
+// K1's kernels: the launcher picks one by `k1_kernel` and reports which it
+// launched, by its name in `kK1KernelNames`
+enum K1Kernel : int {
+  kMma8, kMma16, kMma32, kWgmma64, kWgmma128, kWgmma256, kWide,
+  kTf32x3_8, kTf32x3_16, kTf32x3_32, kTf32x3_64, kTf32x3_128, kTf32x3_256, kTf32x3Groups,
+  kK1Kernels
+};
+constexpr const char* kK1KernelNames[kK1Kernels] = {
+    "oneshot_attention_mma_kernel<8>",          "oneshot_attention_mma_kernel<16>",
+    "oneshot_attention_mma_kernel<32>",         "oneshot_attention_wgmma_kernel<64>",
+    "oneshot_attention_wgmma_kernel<128>",      "oneshot_attention_wgmma_kernel<256>",
+    "oneshot_attention_wide_kernel",            "oneshot_attention_tf32x3_kernel<8, 8>",
+    "oneshot_attention_tf32x3_kernel<16, 16>",  "oneshot_attention_tf32x3_kernel<32, 32>",
+    "oneshot_attention_tf32x3_kernel<64, 64>",  "oneshot_attention_tf32x3_kernel<128, 128>",
+    "oneshot_attention_tf32x3_kernel<256, 256>", "oneshot_attention_tf32x3_kernel<0, 256>"};
+
+// the kernel of head dim dk: above 256 bf16's wide kernel or float32's
+// column groups of 256; at an instantiated dk its own; else -1
+int k1_kernel(int dk, bool is_bf16) {
+  if (dk > 256) return is_bf16 ? kWide : kTf32x3Groups;
+  const int dims[6] = {8, 16, 32, 64, 128, 256};
+  for (int i = 0; i < 6; ++i)
+    if (dk == dims[i]) return (is_bf16 ? kMma8 : kTf32x3_8) + i;
+  return -1;
+}
+
+cudaError_t launch(const Args& a, int kernel) {
+  switch (kernel) {
+    case kMma8: return launch_mma<8>(a);
+    case kMma16: return launch_mma<16>(a);
+    case kMma32: return launch_mma<32>(a);
+    case kWgmma64: return launch_wgmma<64>(a);
+    case kWgmma128: return launch_wgmma<128>(a);
+    case kWgmma256: return launch_wgmma<256>(a);
+    case kWide: return launch_wide(a);
+    case kTf32x3_8: return launch_f32<8, 8>(a);
+    case kTf32x3_16: return launch_f32<16, 16>(a);
+    case kTf32x3_32: return launch_f32<32, 32>(a);
+    case kTf32x3_64: return launch_f32<64, 64>(a);
+    case kTf32x3_128: return launch_f32<128, 128>(a);
+    case kTf32x3_256: return launch_f32<256, 256>(a);
+    case kTf32x3Groups: return launch_f32<0, kF32GroupCols>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -1212,20 +1588,23 @@ cudaError_t launch(const Args& a, bool is_bf16) {
 
 // q, k: (B, N, H, dk), v: (B, Nk, H, dv), with the head and channel dims
 // packed (strides d, 1); dk in {8, 16, 32, 64, 128, 256} with dv = dk, or dk a
-// multiple of 64 above 256 with dv a multiple of 256 (column groups).
+// multiple of 64 above 256 with dv a multiple of 64 in bf16 (the wide
+// kernel's boxes), of 256 in float32 (column groups).
 // *_bs / *_ts are the batch and token strides in elements. Pointers must be
 // 16-byte aligned, every stride a whole number of 16-byte vectors, and the
 // bf16 scale positive (the Python wrapper checks it). out: contiguous
 // (B, Nq, H, dv). The kv range runs in `splits` ranges of `kv_split` keys (a
 // multiple of 64; none empty); above one split `work` holds splits·B·H·Nq·
 // (dv + 2) floats and a second kernel merges them. `device` is the tensors'.
-// Returns the cudaError_t of the launches.
+// Returns the cudaError_t of the launches; on success `*kernel` (if not null)
+// is the index of the kernel it launched, named by
+// `gfnet_oneshot_attention_kernel_name`.
 extern "C" int gfnet_oneshot_attention(int device, const void* q, const void* k, const void* v, void* out,
                                        void* work, int batch, int nq, int nk, int heads, int dk,
                                        int dv, long long q_bs, long long q_ts, long long k_bs,
                                        long long k_ts, long long v_bs, long long v_ts,
                                        float scale, int is_bf16, int splits, int kv_split,
-                                       void* stream) {
+                                       void* stream, int* kernel) {
   // The calling thread may have no context current (PyTorch's autograd
   // engine runs a backward, and a recomputed forward, on threads of its
   // own, where a first launch would fail): make the tensors' device, and its
@@ -1236,11 +1615,19 @@ extern "C" int gfnet_oneshot_attention(int device, const void* q, const void* k,
       kv_split % kStep || (long long)splits * kv_split < nk || (long long)(splits - 1) * kv_split >= nk ||
       (splits > 1 && work == nullptr))
     return cudaErrorInvalidValue;
-  if (dk > 256 ? (dk % 64 || dv % kGroupCols) : dv != dk) return cudaErrorInvalidValue;
+  if (dk > 256 ? (dk % 64 || dv % (is_bf16 ? 64 : kF32GroupCols)) : dv != dk) return cudaErrorInvalidValue;
   const Args a{q,     k,    v,    out,  static_cast<float*>(work), batch, nq, nk, heads, dk, dv,
                q_bs,  q_ts, k_bs, k_ts, v_bs, v_ts, scale, splits, kv_split,
                static_cast<cudaStream_t>(stream)};
-  cudaError_t err = launch(a, is_bf16 != 0);
+  const int id = k1_kernel(dk, is_bf16 != 0);
+  cudaError_t err = launch(a, id);
   if (err == cudaSuccess && splits > 1) err = is_bf16 ? launch_merge<bf16>(a) : launch_merge<float>(a);
+  if (err == cudaSuccess && kernel != nullptr) *kernel = id;
   return err;
+}
+
+// the name of K1's kernel of index `kernel`, as `gfnet_oneshot_attention`
+// reports it; null out of range
+extern "C" const char* gfnet_oneshot_attention_kernel_name(int kernel) {
+  return kernel >= 0 && kernel < kK1Kernels ? kK1KernelNames[kernel] : nullptr;
 }

@@ -4,11 +4,12 @@ Counterpart of `gfnet_tpu/ops/attention.py`. `fused_attention` launches the
 hand-written CUDA kernel K1 (`ops/kernels.py`, `csrc/oneshot_attention.cu`)
 for CUDA tensors, with its gradient recomputed through the plain version, and
 runs the plain `scaled_dot_product_attention` for CPU tensors.
-`streamed_attention_plain` repeats the kernels' schedule (kv tiles, running
-max and sum, base-2 exponentials) for the tests, `kv_split_attention_plain`
-their split of the kv range and its merge, `column_group_attention_plain`
-their column groups above head dim 256, and `attention_tf32_plain` the
-float32 kernel's three TF32 passes. The one semantic that must
+`streamed_attention_plain` repeats the bf16 kernels' schedule (kv tiles,
+running max and sum, base-2 exponentials, and above head dim 256 the logits
+summed box by box) for the tests, `kv_split_attention_plain` their split of
+the kv range and its merge, `column_group_attention_plain` the float32
+kernel's column groups above head dim 256, and `attention_tf32_plain` its
+three TF32 passes. The one semantic that must
 survive is the "entropy invariance" softmax scale, head_dim^-0.5 · log(N) / log(train_avg_length)
 (ref `attention.py:84,213,249`).
 """
@@ -43,14 +44,17 @@ def scaled_dot_product_attention(q: Tensor, k: Tensor, v: Tensor, scale: float |
 
 
 def streamed_attention_plain(q: Tensor, k: Tensor, v: Tensor, scale: float | None = None,
-                             tile: int = 64) -> Tensor:
+                             tile: int = 64, box: int | None = None) -> Tensor:
     """The schedule of K1's bf16 kernels, step by step, in PyTorch: kv in
     tiles of `tile` keys, raw float32 logits, a running max and sum, the
     exponentials as exp2 with scale·log2(e) folded into the argument, the
     accumulator rescaled by exp2 of the max's move, probabilities cast to v's
-    dtype before the PV product, the division after it. Same function as
-    `scaled_dot_product_attention`; the tests and the GPU smoke run hold it
-    against the reference to catch a wrong fold or rescale off the card."""
+    dtype before the PV product, the division after it. `box`: the logits
+    summed over q's and k's channels `box` at a time, in order, as the wide
+    kernel sums them (one 64-channel box a group of products); else in one
+    product. Same function as `scaled_dot_product_attention`; the tests and
+    the GPU smoke run hold it against the reference to catch a wrong fold or
+    rescale off the card."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     c = scale * math.log2(math.e)
@@ -58,9 +62,13 @@ def streamed_attention_plain(q: Tensor, k: Tensor, v: Tensor, scale: float | Non
     qf = q.float()
     m = torch.full((b, h, nq), -math.inf, device=q.device)
     l = torch.zeros((b, h, nq), device=q.device)
-    o = torch.zeros((b, h, nq, d), device=q.device)
+    o = torch.zeros((b, h, nq, v.shape[-1]), device=q.device)
+    width = box or d
     for t0 in range(0, k.shape[1], tile):
-        s = torch.einsum("bnhd,bmhd->bhnm", qf, k[:, t0:t0 + tile].float())
+        kt = k[:, t0:t0 + tile].float()
+        s = torch.einsum("bnhd,bmhd->bhnm", qf[..., :width], kt[..., :width])
+        for c0 in range(width, d, width):
+            s = s + torch.einsum("bnhd,bmhd->bhnm", qf[..., c0:c0 + width], kt[..., c0:c0 + width])
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp2((m - m_new) * c)
         p = torch.exp2(s * c - (m_new * c)[..., None])
@@ -92,12 +100,12 @@ def kv_split_attention_plain(q: Tensor, k: Tensor, v: Tensor, scale: float, kv_s
 
 
 def column_group_attention_plain(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
-    """K1's column groups in PyTorch: the logits over all of q's and k's
-    channels, the same for every group, then the output
-    `kernels.ATTENTION_GROUP` columns of v at a time, concatenated. float32;
-    the same function as `scaled_dot_product_attention` at any widths of q/k
-    and v."""
-    group = kernels.ATTENTION_GROUP
+    """The float32 K1's column groups in PyTorch: the logits over all of q's
+    and k's channels, the same for every group, then the output
+    `kernels.ATTENTION_F32_GROUP` columns of v at a time, concatenated.
+    float32; the same function as `scaled_dot_product_attention` at any
+    widths of q/k and v."""
+    group = kernels.ATTENTION_F32_GROUP
     probs = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale, dim=-1)
     return torch.cat([torch.einsum("bhnm,bmhd->bnhd", probs, v[..., c0:c0 + group].float())
                       for c0 in range(0, v.shape[-1], group)], dim=-1)
@@ -131,7 +139,7 @@ def attention_tf32_plain(q: Tensor, k: Tensor, v: Tensor, scale: float, passes: 
 
 class _FusedAttentionCUDA(torch.autograd.Function):
     """K1 forward, at any head dim (`kernels.oneshot_attention` zero-pads
-    those it is not instantiated at, and runs column groups above 256); the
+    those it is not instantiated at, and runs the wide kernels above 256); the
     backward recomputes through the plain version at the caller's head dim,
     as the JAX package pairs its kernel with an einsum backward
     (`ops/attention.py:122-147`). It has no attention backward kernel."""

@@ -64,18 +64,19 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _build(out_dir: Path) -> None:
+def _build(out_dir: Path, sources: tuple[str, ...] = SOURCES, flags: tuple[str, ...] = ()) -> None:
     """One `nvcc` per source, all started together, then one link. The
     library is linked under a name of this process and renamed into place,
-    so a concurrent loader never sees a half-written file."""
+    so a concurrent loader never sees a half-written file. `flags` are
+    added to `NVCC_FLAGS` (a variant's `-D`)."""
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    objs = [out_dir / f"{Path(name).stem}.{os.getpid()}.o" for name in SOURCES]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+    objs = [out_dir / f"{Path(name).stem}.{os.getpid()}.o" for name in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", str(CSRC / name), "-o", str(obj)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name, obj in zip(SOURCES, objs)]
+             for name, obj in zip(sources, objs)]
     outs = [proc.communicate()[0] for proc in procs]
-    for name, proc, out in zip(SOURCES, procs, outs):
+    for name, proc, out in zip(sources, procs, outs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{out}")
     lib = out_dir / f"{LIB_NAME}.{os.getpid()}"
@@ -83,14 +84,22 @@ def _build(out_dir: Path) -> None:
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    (out_dir / "build.log").write_text("\n".join(f"== {n}\n{o}" for n, o in zip(SOURCES, outs)))
+    (out_dir / "build.log").write_text("\n".join(f"== {n}\n{o}" for n, o in zip(sources, outs)))
     os.replace(lib, out_dir / LIB_NAME)
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def declare_attention(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.gfnet_oneshot_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, f, i, i, i, p]
+    lib.gfnet_oneshot_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, f, i, i, i, p,
+                                            ctypes.POINTER(i)]
     lib.gfnet_oneshot_attention.restype = i
+    lib.gfnet_oneshot_attention_kernel_name.argtypes = [i]
+    lib.gfnet_oneshot_attention_kernel_name.restype = ctypes.c_char_p
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    declare_attention(lib)
     corr = [i, p, p, p, p] + [i] * 16 + [f, i, p]
     lib.gfnet_local_corr.argtypes = corr
     lib.gfnet_local_corr.restype = i
@@ -136,41 +145,48 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# the head dims K1 is instantiated at; any other runs on zero-padded copies,
-# and one above 256 in column groups (`attention_head_dim`, `pad_head_dim`)
+# the head dims K1 is instantiated at; any other up to 256 runs on
+# zero-padded copies, one above 256 on the wide kernels at a multiple of 64
+# (`attention_head_dim`, `attention_value_dim`, `pad_head_dim`)
 ATTENTION_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-ATTENTION_GROUP = 256  # above 256, the output columns one block takes (a column group)
+ATTENTION_BOX = 64         # above 256: q/k channels and bf16 v columns come in boxes of 64
+ATTENTION_SLAB = 512       # above 256, bf16: the most v columns one block takes (two warpgroups' 256)
+ATTENTION_F32_GROUP = 256  # above 256, float32: the v columns one block takes (a column group)
 KV_TILE = 64  # keys: a kv split is a multiple of it
 
 
 def attention_head_dim(d: int) -> int:
     """The width at which K1 computes the logits of head dim `d`: the smallest
     of `ATTENTION_HEAD_DIMS` that holds it, and above 256 `d` rounded up to a
-    multiple of 64 (the column-group kernels read q and k in k-steps). Any
-    `d` runs."""
+    multiple of `ATTENTION_BOX` (the wide kernels read q and k in boxes or
+    k-steps of 64 channels). Any `d` runs."""
     if d < 1:
         raise ValueError(f"oneshot_attention: head dim {d}")
     for width in ATTENTION_HEAD_DIMS:
         if d <= width:
             return width
-    return -(-d // 64) * 64
+    return -(-d // ATTENTION_BOX) * ATTENTION_BOX
 
 
-def attention_value_dim(d: int) -> int:
+def attention_value_dim(d: int, bf16: bool) -> int:
     """The width of v and of K1's output for head dim `d`: the logits' width
-    up to 256; above, whole column groups of `ATTENTION_GROUP`."""
-    return attention_head_dim(d) if d <= ATTENTION_HEAD_DIMS[-1] else -(-d // ATTENTION_GROUP) * ATTENTION_GROUP
+    up to 256, and above it in bf16 too (the wide kernel's warpgroups take
+    whole 64-column boxes of v); above 256 in float32, whole column groups of
+    `ATTENTION_F32_GROUP`."""
+    if d <= ATTENTION_HEAD_DIMS[-1] or bf16:
+        return attention_head_dim(d)
+    return -(-d // ATTENTION_F32_GROUP) * ATTENTION_F32_GROUP
 
 
 def pad_head_dim(fn, q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     """`fn(q, k, v, scale)` on q and k zero-padded along the head dim to
-    `attention_head_dim`, v to `attention_value_dim`, sliced back to D
-    channels (contiguous). Zero channels in q and k add nothing to a logit
-    and those of v give zero outputs, so the function is unchanged; `scale`
-    is the caller's, from the unpadded D. A head dim K1 is instantiated at
-    passes through as it is."""
+    `attention_head_dim`, v to `attention_value_dim` of q's dtype, sliced back
+    to D channels (contiguous). Zero channels in q and k add nothing to a
+    logit and those of v give zero outputs, so the function is unchanged;
+    `scale` is the caller's, from the unpadded D. A head dim K1 is
+    instantiated at passes through as it is."""
     d = q.shape[-1]
-    dk, dv = attention_head_dim(d), attention_value_dim(d)
+    dk, dv = attention_head_dim(d), attention_value_dim(d, q.dtype == torch.bfloat16)
     if dk == d and dv == d:
         return fn(q, k, v, scale)
     pad = lambda t, width: torch.nn.functional.pad(t, (0, width - d))
@@ -181,15 +197,17 @@ def pad_head_dim(fn, q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
 def attention_splits(bf16: bool, b: int, nq: int, nk: int, h: int, dk: int, dv: int,
                      sms: int) -> tuple[int, int]:
     """(splits, keys a split) of a K1 launch. Where the kernel's blocks (q
-    rows × batch·heads × column groups) are fewer than the card's `sms`
-    times the blocks an SM holds (two of the float32 kernel's four warps,
-    one of a bf16 kernel's eight), the kv range is split into ranges of
-    whole 64-key tiles, at least two tiles each, as many as that many
+    rows × batch·heads × column groups or slabs) are fewer than the card's
+    `sms` times the blocks an SM holds (two of the float32 kernel's four
+    warps, one of a bf16 kernel's eight), the kv range is split into ranges
+    of whole 64-key tiles, at least two tiles each, as many as that many
     blocks hold; a second kernel merges the splits. Else one split of the
     whole range. Cached: a launch's host cost."""
     tiles = -(-nk // KV_TILE)
-    rows = 64 if (not bf16 or dk == 256) else 128
-    groups = dv // ATTENTION_GROUP if dk > ATTENTION_GROUP else 1
+    rows = 64 if (not bf16 or dk >= 256) else 128
+    groups = 1
+    if dk > 256:
+        groups = -(-dv // ATTENTION_SLAB) if bf16 else dv // ATTENTION_F32_GROUP
     blocks = -(-nq // rows) * b * h * groups
     splits = min(sms * (1 if bf16 else 2) // blocks, tiles // 2)
     if splits < 2:
@@ -202,7 +220,7 @@ def attention_splits(bf16: bool, b: int, nq: int, nk: int, h: int, dk: int, dv: 
 def _attention_plan(bf16: bool, b: int, nq: int, nk: int, h: int, d: int, index: int) -> tuple[int, int, int, int]:
     """(dk, dv, splits, keys a split) of a K1 call on device `index`, cached:
     the launches are many and short, and bound by the host."""
-    dk, dv = attention_head_dim(d), attention_value_dim(d)
+    dk, dv = attention_head_dim(d), attention_value_dim(d, bf16)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return (dk, dv) + attention_splits(bf16, b, nq, nk, h, dk, dv, sms)
 
@@ -211,19 +229,24 @@ def oneshot_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     """K1: softmax(q·kᵀ·scale)·v over (B, N, H, D) CUDA tensors → contiguous
     (B, Nq, H, D), float32 or bf16, any D. The kernels are instantiated at D
     in `ATTENTION_HEAD_DIMS`; another D up to 256 runs them on copies
-    zero-padded to the next of those, and a D above 256 runs the
-    column-group kernels, whose blocks compute the logits over all of q's
-    and k's channels (padded to a multiple of 64) and the output of 256 of
-    v's (padded to whole groups): `pad_head_dim`, one call, counted as one.
-    At an instantiated D the head and channel dims must be packed (strides
-    D, 1), the batch and token strides are free (a slice of a fused qkv
-    projection is read in place). Both types run on tensor cores (bf16:
-    `wgmma` at D = 64, 128, 256, `mma.sync` at 8, 16, 32 and in column
-    groups; float32: `mma.sync` TF32 in three passes, float32 precision)
-    and read 16-byte vectors: pointers must be 16-byte aligned and batch and
-    token strides whole 16-byte vectors, and a bf16 scale positive, or it
-    raises. Where the blocks would not fill the card the kv range is split
-    (`attention_splits`): a second launch merges the splits, still one call."""
+    zero-padded to the next of those. Above 256, q and k are padded to a
+    multiple of 64 channels; bf16 runs the wide kernel, whose blocks stream
+    q, k and v through shared memory in 64 x 64 boxes by TMA, compute the
+    logits once on `wgmma` and give them to up to 512 output columns (two
+    warpgroups), v padded to a multiple of 64 only; float32 runs column
+    groups of 256 output columns (v padded to whole groups), each block
+    computing the logits over the whole D: `pad_head_dim`, one call,
+    counted as one (`oneshot_attention.kernels` counts the calls by the
+    CUDA kernel the library reports it launched). At an instantiated
+    D the head and channel dims must be packed (strides D, 1), the batch
+    and token strides are free (a slice of a fused qkv projection is read in
+    place). Both types run on tensor cores (bf16: `wgmma` at D = 64, 128,
+    256 and above, `mma.sync` at 8, 16, 32; float32: `mma.sync` TF32 in three
+    passes, float32 precision) and read 16-byte vectors: pointers must be
+    16-byte aligned and batch and token strides whole 16-byte vectors, and a
+    bf16 scale positive, or it raises. Where the blocks would not fill the
+    card the kv range is split (`attention_splits`): a second launch merges
+    the splits, still one call."""
     _require_cuda("oneshot_attention", q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"oneshot_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
@@ -241,9 +264,11 @@ def oneshot_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     return pad_head_dim(functools.partial(_attention_launch, splits=splits, kv_split=kv_split), q, k, v, scale)
 
 
-def _attention_launch(q: Tensor, k: Tensor, v: Tensor, scale: float, splits: int, kv_split: int) -> Tensor:
+def _attention_launch(q: Tensor, k: Tensor, v: Tensor, scale: float, splits: int, kv_split: int,
+                      lib: ctypes.CDLL | None = None) -> Tensor:
     """One K1 call at the kernels' widths: q, k (..., dk), v (..., dv), the
-    kv range in `splits` ranges of `kv_split` keys."""
+    kv range in `splits` ranges of `kv_split` keys; `lib` another build of
+    the attention source (a timing variant), by default the package's."""
     b, nq, h, dk = q.shape
     dv = v.shape[3]
     bf16 = q.dtype == torch.bfloat16
@@ -258,20 +283,26 @@ def _attention_launch(q: Tensor, k: Tensor, v: Tensor, scale: float, splits: int
     out = torch.empty((b, nq, h, dv), dtype=q.dtype, device=q.device)
     work = (torch.empty(splits * b * h * nq * (dv + 2), dtype=torch.float32, device=q.device)
             if splits > 1 else None)
-    lib = load_library()
+    lib = load_library() if lib is None else lib
+    kernel = ctypes.c_int(-1)  # the library's index of the kernel it launched
     err = lib.gfnet_oneshot_attention(
         q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if work is None else work.data_ptr(), b, nq, nk, h, dk, dv, q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale), int(bf16), splits, kv_split,
-        _stream(q.device))
+        _stream(q.device), ctypes.byref(kernel))
     _check(err, "oneshot_attention")
     oneshot_attention.launches += 1
     oneshot_attention.merges += splits > 1
+    name = _K1_NAMES.get(kernel.value) or _K1_NAMES.setdefault(
+        kernel.value, lib.gfnet_oneshot_attention_kernel_name(kernel.value).decode())
+    oneshot_attention.kernels[name] = oneshot_attention.kernels.get(name, 0) + 1
     return out
 
 
 oneshot_attention.launches = 0
 oneshot_attention.merges = 0  # calls whose kv was split: each launched the merge kernel too
+oneshot_attention.kernels = {}  # calls by the CUDA kernel the library reports it launched, by name
+_K1_NAMES: dict[int, str] = {}  # the library's index of a K1 kernel → its name
 
 
 # The tiling of K2 and K3 (`csrc/local_corr_window.cuh`): a block of eight
@@ -441,6 +472,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     oneshot_attention.merges = 0
+    oneshot_attention.kernels = {}
 
 
 def launch_counts() -> dict[str, int]:

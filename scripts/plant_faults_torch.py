@@ -8,10 +8,15 @@ gate's tolerance:
   - K1 with its softmax scale off by 1%, with the last 64 keys dropped, and
     with a stale ring stage (each 64-key tile of probabilities multiplied
     with the V tile before it), at the ViT and cross-view shapes of phase 3
-    (bf16: the `wgmma` kernel at D=64, the `mma.sync` kernel at D=8); and in
-    float32 with q, k and v rounded to TF32 first (a single TF32 pass: what
-    the float32 gate must catch), beside the sound float32 kernel, at those
-    shapes and at D = 128, 256 and 320 (`k1` runs these alone);
+    (bf16: the `wgmma` kernel at D=64, the `mma.sync` kernel at D=8); at D =
+    320 (bf16, the wide kernel) the stale ring stage, k's channels 256-319
+    zeroed (one K box left out of the logits) and v's columns 256-319
+    replaced by 192-255 (a warpgroup reading its neighbour's box), each
+    against K1's gate and the streamed gate (the plain version that sums the
+    logits box by box), beside the sound kernel; and in float32 with q, k
+    and v rounded to TF32 first (a single TF32 pass: what the float32 gate
+    must catch), beside the sound float32 kernel, at those shapes and at D =
+    128, 256 and 320 (`k1` runs these alone);
   - K2 with the centre tap of every window zeroed, at two shapes of phase 4;
   - the tiny config's `match()` on CUDA against the CPU (phase 5), with K1's
     scale off by 1% and with K2's centre tap zeroed;
@@ -53,7 +58,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from gfnet_tpu_torch.ops import kernels  # noqa: E402
 from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, scaled_dot_product_attention,  # noqa: E402
-                                           tf32_round)
+                                           streamed_attention_plain, tf32_round)
 from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, _window_patches,  # noqa: E402
                                                    local_corr_dq_plain)
 
@@ -71,6 +76,20 @@ def k1_tail_dropped(q, k, v, scale):
 def k1_stale_stage(q, k, v, scale):
     # tile i of P meets tile i-1 of V, as when a ring stage is read before its refill has landed
     return REAL_K1(q, k, torch.roll(v, 64, dims=1), scale)
+
+
+def k1_box_dropped(q, k, v, scale):
+    # k's channels 256-319 zeroed: the last K box of D = 320 left out of the logits
+    k = k.clone()
+    k[..., 256:320] = 0
+    return REAL_K1(q, k, v, scale)
+
+
+def k1_neighbour_box(q, k, v, scale):
+    # v's columns 256-319 replaced by 192-255: a warpgroup reading its neighbour's V box
+    v = v.clone()
+    v[..., 256:320] = v[..., 192:256]
+    return REAL_K1(q, k, v, scale)
 
 
 def k1_tf32_single_pass(q, k, v, scale):
@@ -152,6 +171,25 @@ def k1_faults(caught: list) -> None:
         for fault in (k1_scale_off, k1_tail_dropped, k1_stale_stage):
             err = (fault(q, k, v, scale).float() - want).abs().max().item()
             report(f"{fault.__name__} {[b, n, h, d]}", "k1", err, chip_smoke.K1_ATOL, caught)
+    # the wide kernel (bf16, D = 320, kv split 4 ways): each fault against both
+    # of its gates, and the sound kernel, which must pass both
+    b, n, h, d = 2, 1024, 1, 320
+    scale = d**-0.5
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    want = scaled_dot_product_attention(q.float(), k.float(), v.float(), scale)
+    streamed = streamed_attention_plain(q, k, v, scale, box=64).float()
+    for fault in (None, k1_stale_stage, k1_box_dropped, k1_neighbour_box):
+        got = (fault or REAL_K1)(q, k, v, scale).float()
+        readings = {"k1": ((got - want).abs().max().item(), chip_smoke.K1_ATOL),
+                    "k1_streamed": (((got - streamed).abs().max() / streamed.abs().max()).item(),
+                                    chip_smoke.K1_STREAMED_RTOL)}
+        for gate, (err, tol) in readings.items():
+            if fault is None:
+                caught.append(err <= tol)
+                print(json.dumps({"sound": f"k1 bf16 {[b, n, h, d]}", "gate": gate, "max_err": err, "tol": tol,
+                                  "passes": err <= tol}), flush=True)
+            else:
+                report(f"{fault.__name__} {[b, n, h, d]}", gate, err, tol, caught)
     for b, n, h, d in ((2, 1601, 16, 64), (2, 1600, 8, 8), (1, 6401, 16, 64), (2, 1024, 1, 128),
                        (2, 1024, 1, 256), (2, 1024, 1, 320)):
         scale = entropy_invariant_scale(8, n, 1024) if d == 8 else d**-0.5

@@ -42,8 +42,12 @@ def cuda_device():
     (1, 7, 7, 2, 128), (1, 77, 130, 3, 32),           # below one tile; nq != nk
     (2, 1024, 1024, 8, 12), (1, 130, 77, 2, 20), (1, 200, 300, 2, 100),  # padded to 16, 32, 128
     (2, 1024, 1024, 1, 256), (1, 130, 77, 2, 200),    # D = 256 (kv split), and padded to it
-    (2, 1024, 1024, 1, 320), (1, 77, 130, 2, 512),    # column groups: two, padded; two, exact
+    (2, 1024, 1024, 1, 320), (1, 77, 130, 2, 512),    # above 256: bf16 wide kernel, float32 column groups
     (1, 200, 2100, 1, 128), (2, 1024, 1024, 1, 128),  # kv split over more ranges than one tile each
+    (2, 1024, 1024, 1, 384), (2, 1024, 1024, 1, 512),  # wide: 3 + 3 and 4 + 4 boxes of v, kv split
+    (16, 1024, 1024, 1, 320), (1, 77, 130, 2, 300),   # wide: 256 blocks, no split; q, k and v padded to 320
+    (1, 77, 130, 2, 576), (1, 77, 130, 1, 1024),      # wide: two slabs (8 + 1 boxes; 8 + 8), Q resident
+    (1, 130, 200, 1, 1536),                           # wide: Q's boxes stream through the ring
 ])
 def test_oneshot_attention_matches_plain(cuda_device, dtype, b, n, nk, h, d):
     gen = torch.Generator(cuda_device).manual_seed(0)
@@ -58,9 +62,10 @@ def test_oneshot_attention_matches_plain(cuda_device, dtype, b, n, nk, h, d):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("d", [64, 8, 32, 128, 12])
+@pytest.mark.parametrize("d", [64, 8, 32, 128, 12, 320, 512])
 def test_oneshot_attention_reads_strided_qkv(cuda_device, d):
-    """q, k, v as slices of one fused projection, read in place."""
+    """q, k, v as slices of one fused projection, read in place (above 256
+    by the wide kernel's tensor maps over the strided tokens)."""
     gen = torch.Generator(cuda_device).manual_seed(1)
     qkv = torch.randn((2, 300, 3, 4, d), generator=gen, device=cuda_device).to(torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -70,18 +75,38 @@ def test_oneshot_attention_reads_strided_qkv(cuda_device, d):
 
 
 @pytest.mark.parametrize("b,n,nk,h,d", [(2, 1601, 1601, 16, 64), (2, 1600, 1600, 8, 8), (1, 130, 77, 2, 16),
-                                         (2, 1024, 1024, 2, 32), (1, 300, 700, 1, 128)])
+                                         (2, 1024, 1024, 2, 32), (1, 300, 700, 1, 128),
+                                         (2, 1024, 1024, 1, 320), (1, 77, 130, 2, 384), (1, 130, 77, 2, 512),
+                                         (16, 1024, 1024, 1, 320)])
 def test_oneshot_attention_matches_its_streamed_plain_version(cuda_device, b, n, nk, h, d):
     """The bf16 kernels against the PyTorch function that repeats their
-    schedule in bf16: closer than against the float32 reference."""
+    schedule in bf16 (above D = 256 the logits box by box): closer than
+    against the float32 reference."""
     gen = torch.Generator(cuda_device).manual_seed(3)
     q = torch.randn((b, n, h, d), generator=gen, device=cuda_device).to(torch.bfloat16)
     k, v = (torch.randn((b, nk, h, d), generator=gen, device=cuda_device).to(torch.bfloat16) for _ in range(2))
     scale = entropy_invariant_scale(d, n, 1024)
     got = kernels.oneshot_attention(q, k, v, scale).float()
-    want = streamed_attention_plain(q, k, v, scale).float()
+    want = streamed_attention_plain(q, k, v, scale, box=64 if d > 256 else None).float()
     # the order of float32 sums and the last bit of ex2: one rounding of the bf16 output
     torch.testing.assert_close(got, want, rtol=2**-7, atol=2**-7)
+
+
+@pytest.mark.parametrize("dtype,widths", [
+    (torch.bfloat16, {8: "mma_kernel<8>", 12: "mma_kernel<16>", 32: "mma_kernel<32>", 64: "wgmma_kernel<64>",
+                      200: "wgmma_kernel<256>", 300: "wide_kernel", 512: "wide_kernel"}),
+    (torch.float32, {8: "tf32x3_kernel<8, 8>", 100: "tf32x3_kernel<128, 128>", 256: "tf32x3_kernel<256, 256>",
+                     300: "tf32x3_kernel<0, 256>"}),
+])
+def test_oneshot_attention_reports_the_kernel_it_launched(cuda_device, dtype, widths):
+    """Each call is counted under the CUDA kernel the library reports it
+    launched: the instantiated head dim that holds D, above 256 the wide
+    kernel in bf16 and float32's column groups."""
+    for d, kernel in widths.items():
+        q = torch.randn((1, 70, 2, d), device=cuda_device).to(dtype)
+        kernels.reset_launch_counts()
+        kernels.oneshot_attention(q, q, q, d**-0.5)
+        assert kernels.oneshot_attention.kernels == {f"oneshot_attention_{kernel}": 1}, d
 
 
 @pytest.mark.parametrize("d", [64, 8])

@@ -91,6 +91,43 @@ def test_streamed_attention_matches_oneshot_pallas_bf16(nq, nk, d, scale):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=1e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize("d", [320, 512])
+def test_streamed_attention_box_by_box_is_the_plain_function(d):
+    """Above head dim 256 the bf16 kernel sums the logits one 64-channel box
+    at a time (`box=64`); that schedule, on ragged q (77) and kv (130) over 2
+    heads, against the float32 plain version, float32 both sides (sound
+    runs read 2.0e-6 at D = 320 and 4.8e-7 at 512)."""
+    rng = np.random.default_rng(d)
+    q = T(rng.normal(0, 1, (1, 77, 2, d)))
+    k, v = (T(rng.normal(0, 1, (1, 130, 2, d))) for _ in range(2))
+    torch.testing.assert_close(streamed_attention_plain(q, k, v, d**-0.5, box=64),
+                               scaled_dot_product_attention(q, k, v, d**-0.5), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_head_dim_matches_oneshot_pallas(dtype):
+    """D = 384, which the bf16 wide kernel takes at its own width: the port's
+    plain path (`fused_attention` on CPU tensors) and the wide kernel's
+    schedule (`streamed_attention_plain(box=64)`) against JAX's Pallas K1 in
+    interpret mode, ragged q (77) and kv (130) over 2 heads. float32: 2e-5
+    (summation order; a sound run read 1.1e-6); bf16 operands, probabilities
+    and output on both sides: 1e-2, one rounding of the bf16 output, as the
+    bf16 test above (a sound run read 3.9e-3)."""
+    rng = np.random.default_rng(384)
+    q = rng.normal(0, 1, (1, 77, 2, 384)).astype(np.float32)
+    k, v = (rng.normal(0, 1, (1, 130, 2, 384)).astype(np.float32) for _ in range(2))
+    scale = 384**-0.5
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(oneshot_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)), scale=scale, interpret=True),
+                      np.float32)
+    qt, kt, vt = (T(a, tdt) for a in (q, k, v))
+    tol = 2e-5 if dtype == "float32" else 1e-2
+    streamed = streamed_attention_plain(qt, kt, vt, scale, box=64).float().numpy()
+    np.testing.assert_allclose(streamed, want, rtol=tol, atol=tol)
+    if dtype == "float32":
+        np.testing.assert_allclose(fused_attention(qt, kt, vt, scale).numpy(), want, rtol=tol, atol=tol)
+
+
 def test_streamed_attention_is_the_plain_function():
     rng = np.random.default_rng(13)
     q, k, v = (T(rng.normal(0, 1, (2, 70, 2, 8))) for _ in range(3))
@@ -123,15 +160,26 @@ def test_pad_head_dim_equals_the_unpadded_plain_version(d):
 
 def test_attention_head_dim_pads_up_and_groups_columns_above_256():
     """Every head dim has a width: the next instantiated one up to 256, and
-    above it q/k at a multiple of 64 and v in whole groups of 256 columns.
-    The column groups' decomposition (logits over the whole head dim, the
+    above it q/k at a multiple of 64, and v at a multiple of 64 in bf16 (the
+    wide kernel's boxes) or in whole groups of 256 columns in float32. The
+    float32 column groups' decomposition (logits over the whole head dim, the
     same for each group, then 256 output columns at a time) through the
     padding, at D = 256 and 320, against the Pallas kernel in interpret mode,
     float32 (a sound run read at most 8.3e-7)."""
     assert [kernels.attention_head_dim(d) for d in (1, 8, 12, 16, 24, 33, 64, 96, 128, 129, 256, 257, 320, 600)] == \
         [8, 8, 16, 16, 32, 64, 64, 128, 128, 256, 256, 320, 320, 640]
-    assert [kernels.attention_value_dim(d) for d in (12, 129, 256, 257, 320, 512, 600)] == \
+    assert [kernels.attention_value_dim(d, bf16=False) for d in (12, 129, 256, 257, 320, 512, 600)] == \
         [16, 256, 256, 512, 512, 512, 768]
+    assert [kernels.attention_value_dim(d, bf16=True) for d in (12, 129, 256, 257, 300, 320, 384, 512, 600)] == \
+        [16, 256, 256, 320, 320, 320, 384, 512, 640]
+    # what the wrapper hands the kernels at D = 300: q and k at 320 in both
+    # types, v at 320 in bf16 and 512 in float32
+    widths = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros((1, 3, 1, 300), dtype=dtype)
+        kernels.pad_head_dim(lambda q, k, v, scale: widths.append((q.shape[-1], k.shape[-1], v.shape[-1])) or v,
+                             x, x, x, 1.0)
+    assert widths == [(320, 320, 320), (320, 320, 512)]
     rng = np.random.default_rng(320)
     for d in (256, 320):
         q, k, v = (rng.normal(0, 1, (1, 24, 2, d)).astype(np.float32) for _ in range(3))
@@ -175,7 +223,10 @@ def test_kv_split_merge_matches_oneshot_pallas(nk, kv_split):
     assert kernels.attention_splits(False, 2, 1024, 1024, 1, 320, 512, 132) == (4, 256)  # float32: 2 an SM
     assert kernels.attention_splits(True, 16, 1024, 1024, 1, 128, 128, 132) == (1, 1024)  # 128 blocks
     assert kernels.attention_splits(True, 2, 1024, 1024, 8, 8, 8, 132) == (1, 1024)  # 128 blocks
-    assert kernels.attention_splits(True, 2, 1024, 1024, 1, 320, 512, 132) == (4, 256)  # 2 column groups
+    assert kernels.attention_splits(True, 2, 1024, 1024, 1, 320, 320, 132) == (4, 256)  # one slab: 32 blocks
+    assert kernels.attention_splits(True, 2, 1024, 1024, 1, 512, 512, 132) == (4, 256)  # one slab of 512
+    assert kernels.attention_splits(True, 2, 1024, 1024, 1, 640, 640, 132) == (2, 512)  # two slabs: 64 blocks
+    assert kernels.attention_splits(True, 16, 1024, 1024, 1, 320, 320, 132) == (1, 1024)  # 256 blocks
     for args in ((False, 1, 200, 2100, 1, 8, 8, 132), (False, 2, 1024, 1024, 2, 32, 32, 132)):
         splits, per = kernels.attention_splits(*args)
         assert per % 64 == 0 and per >= 128 and (splits - 1) * per < args[3] <= splits * per
