@@ -58,6 +58,19 @@ Phases, one JSON line each:
      `scripts/read_jax_accuracy.py` under that chain: the same draws; the
      mean |ΔACE| over the pairs JAX registers below 1 px), and each set's
      100-pair MACE against the TPU oracle `workspace/eval_synth_r5b.json`;
+  data: the dataset path of both CLIs on the card, files read without PIL:
+     (a) the committed JPEG/PNG fixtures (`tests/data/images`) decoded by
+     the image library built here against PIL's stored decode, and the
+     decode ms of a 640×480 4:2:0 JPEG on one thread and in a pool; (b)
+     `tools/make_synth_valdir` writes 16 pairs at 448² on the card,
+     `cli.test.main` evaluates them at full width (bf16, the r5b head),
+     the flagship matcher evaluates the same `eval_pairs` in memory under
+     the same keys: the MACEs within DATA_MACE_TOL, and a planted fault
+     (source channels reversed) far outside; (c) `cli.train.main` at full
+     width over a googlemap-layout directory (B=8, 64 pairs, decode
+     threads, augmentations and pair synthesis on the card): finite losses,
+     step ms, the loader's ms per batch alone and in the loop, the card's
+     busy share over the steady steps;
   learn: the port learns on the card: `eval/learnability.run` (the tiny
      config from the JAX package's seed-0 draw, 500 steps of 8 synthetic
      pairs made on the card, then `benchmark_mace` on 16 held-out pairs);
@@ -110,6 +123,8 @@ HEAD_NPZ = ROOT / "workspace" / "trained_head_flagship_r5b.npz"
 TINY_HEAD = ROOT / "workspace" / "trained_head_tiny.npz"
 JAX_ACCURACY = ROOT / "gfnet_tpu_torch" / "eval" / "jax_accuracy_r5b.json"
 ORACLE = ROOT / "workspace" / "eval_synth_r5b.json"
+FIXTURES = ROOT / "tests" / "data" / "images"  # scripts/make_image_fixtures_torch.py
+LOG = ROOT / "chiprun_out" / "chip_smoke.jsonl"
 # the oracle's protocol: 100 pairs a set at 448², deformation 0.3, batches of 4
 ACC_PAIRS, ACC_RES, ACC_DEFORMATION, ACC_SEED, ACC_BATCH = 100, 448, 0.3, 1234, 4
 
@@ -195,12 +210,29 @@ DIST_STEP_REPEATS = 5
 # both are `F.grid_sample`, whose corner weights round alike up to the
 # order of a few float32 operations on values of about 1
 GRID_SAMPLE_ATOL = 1e-5
+# The data phase: `cli.test` over a PNG val directory of DATA_PAIRS pairs
+# against the flagship matcher on the same pairs in memory under the same
+# keys: PNG is lossless and the val resize at the same size a copy, so the
+# two read the same pixels; px.
+DATA_PAIRS, DATA_MACE_TOL = 16, 1e-3
+# `cli.train` over a googlemap layout: DATA_TRAIN_PAIRS image pairs of
+# (h, w) DATA_TRAIN_HW (the bottom crop leaves 540 rows, which
+# ResizeShorter(640) then enlarges), DATA_TRAIN_PAIRS_RUN pairs trained,
+# decode threads, the fetch from which the profile runs (the steps before
+# it, the first aside, give the medians: the profiler slows the host),
+# batches timed alone.
+DATA_TRAIN_PAIRS, DATA_TRAIN_HW, DATA_TRAIN_PAIRS_RUN = 32, (640, 740), 64
+DATA_WORKERS, DATA_PROFILE_FROM, DATA_LOADER_BATCHES = 8, 6, 6
 LEARN_JAX = {"mace_random": 67.42307868745905, "mace_trained": 2.9560503634743203,
              "source": "workspace/learnability_500.json (scripts/learnability_e2e.py, CPU)"}
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    line = json.dumps({"phase": phase, **kw})
+    print(line, flush=True)
+    LOG.parent.mkdir(exist_ok=True)
+    with open(LOG, "a") as f:  # every line, where the end of the output holds only the last ones
+        f.write(line + "\n")
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -915,6 +947,245 @@ def phase_accuracy(torch, m) -> dict:
     return counts
 
 
+def data_fixtures(np) -> dict:
+    """(a) Every committed fixture decoded by the image library built on this
+    machine, against PIL's decode stored beside it; decode times of the
+    640×480 4:2:0 JPEG, one thread and a pool."""
+    import statistics
+
+    from gfnet_tpu_torch.data import imageio
+
+    built = not any(imageio.BUILD_ROOT.glob(f"imageio_*/{imageio.LIB_NAME}"))
+    t0 = time.perf_counter()
+    imageio.load_library()
+    build_s = time.perf_counter() - t0
+    files = sorted(p for p in FIXTURES.iterdir() if p.suffix in (".jpg", ".png"))
+    differ = []
+    for f in files:
+        ref = np.load(f.with_suffix(".npz"))
+        same = np.array_equal(imageio.read_image(f), ref["rgb"])
+        if "native" in ref.files:
+            same = same and np.array_equal(imageio.read_image(f, mode=None).astype(np.int64),
+                                           ref["native"].astype(np.int64))
+        if not same:
+            differ.append(f.name)
+    big = FIXTURES / "jpeg_420_640x480.jpg"
+    data = big.read_bytes()
+    one = []
+    for _ in range(20):
+        t = time.perf_counter()
+        imageio.decode_jpeg(data)
+        one.append((time.perf_counter() - t) * 1e3)
+    n, threads = 64, 8
+    t = time.perf_counter()
+    imageio.read_images([big] * n, threads=threads)
+    pool_ms = (time.perf_counter() - t) * 1e3 / n
+    return {"library_built": built, "library_load_s": build_s, "fixtures": len(files), "fixtures_equal_to_pil": len(files) - len(differ),
+            "differ": differ, "jpeg_640x480_420_decode_ms_one_thread": statistics.median(one),
+            "jpeg_640x480_420_ms_per_image_pool": pool_ms, "pool_threads": threads, "pool_images": n}
+
+
+def data_eval_cli(torch, np, m, tmp: Path, vit_pth: Path) -> dict:
+    """(b) `tools/make_synth_valdir` writes 16 pairs at 448² on the card;
+    `cli.test.main` evaluates the directory at full width; the flagship
+    matcher evaluates the same `eval_pairs` in memory under the same keys.
+    Then a planted fault: the directory's source images with their channels
+    reversed."""
+    from gfnet_tpu_torch.cli import test as cli_test
+    from gfnet_tpu_torch.data.dataset import HomographyDataset
+    from gfnet_tpu_torch.eval.benchmark import HomographyBenchmark
+    from gfnet_tpu_torch.eval.synthetic import eval_pairs
+    from gfnet_tpu_torch.ops import kernels
+    from gfnet_tpu_torch.tools import make_synth_valdir
+
+    t0 = time.perf_counter()
+    make_synth_valdir.main(["--n", str(DATA_PAIRS), "--res", str(ACC_RES), "--deformation", str(ACC_DEFORMATION),
+                            "--seed", str(ACC_SEED), "--out", str(tmp), "--device", "cuda"])
+    write_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli = cli_test.main(["--dataset", "synthetic", "--data_path", str(tmp), "--ckpt_path", str(HEAD_NPZ),
+                         "--dinov2_weights", str(vit_pth), "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    pairs = eval_pairs(DATA_PAIRS, ACC_RES, ACC_DEFORMATION, seed=ACC_SEED, device="cuda")
+    memory = HomographyBenchmark(pairs).run(m)
+
+    class ChannelsReversed:  # the planted fault
+        def __init__(self, ds):
+            self.ds, self.dataset = ds, ds.dataset
+
+        def __len__(self):
+            return len(self.ds)
+
+        def __getitem__(self, i):
+            s = dict(self.ds[i])
+            s["im_A"] = s["im_A"].flip(-1)
+            return s
+
+    val = HomographyDataset("synthetic", "val", str(tmp), (ACC_RES, ACC_RES), device="cuda")
+    planted = HomographyBenchmark(ChannelsReversed(val)).run(m)
+    key = "mace_synthetic"
+    out = {"pairs": DATA_PAIRS, "res": ACC_RES, "write_s": write_s, "cli_s": cli_s,
+           "mace_cli": cli[key], "mace_in_memory": memory[key],
+           "mace_abs_diff": abs(cli[key] - memory[key]), "tol_px": DATA_MACE_TOL,
+           "planted_channels_reversed_abs_diff": abs(planted[key] - memory[key]),
+           "cli_results": cli, "launches": counts}
+    if counts["oneshot_attention"] == 0 or counts["local_corr"] == 0:
+        raise AssertionError(f"data: cli.test launched {counts}")
+    return out
+
+
+def _googlemap_dir(torch, np, root: Path) -> dict:
+    """`train/GoogleMap/{map,satellite}/` of DATA_TRAIN_PAIRS pairs of
+    DATA_TRAIN_HW textures made on the card (the satellite view a modality
+    shift of the map), written as PNG."""
+    from gfnet_tpu_torch.data.imageio import write_png
+    from gfnet_tpu_torch.eval.synthetic import make_texture, modality_shift, to_uint8
+
+    rng = np.random.default_rng(11)
+    h, w = DATA_TRAIN_HW
+    for sub in ("map", "satellite"):
+        (root / "train" / "GoogleMap" / sub).mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    for i in range(DATA_TRAIN_PAIRS):
+        tex = make_texture(rng, max(h, w), "cuda")[:h, :w]
+        write_png(root / "train" / "GoogleMap" / "map" / f"{i:04d}.png", to_uint8(tex), compress_level=1)
+        write_png(root / "train" / "GoogleMap" / "satellite" / f"{i:04d}.png",
+                  to_uint8(modality_shift(tex, rng)), compress_level=1)
+    return {"pairs": DATA_TRAIN_PAIRS, "hw": [h, w], "write_s": time.perf_counter() - t0}
+
+
+def data_train_cli(torch, np, tmp: Path, vit_pth: Path) -> dict:
+    """(c) `cli.train.main` at full width over a googlemap-layout directory
+    (B=8, 64 pairs, the r5b head as the fine-tune start, `--eval_after` on 4
+    val pairs), with each step and each batch fetch timed (`train_loop`
+    wrapped), the last two steps with their fetches profiled for the card's
+    busy share; then the loader alone, its ms per batch."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfnet_tpu_torch.cli import train as cli_train
+    from gfnet_tpu_torch.data.dataset import BatchLoader, HomographyDataset
+    from gfnet_tpu_torch.ops import kernels
+    from gfnet_tpu_torch.tools import make_synth_valdir
+
+    made = _googlemap_dir(torch, np, tmp)
+    make_synth_valdir.main(["--n", "4", "--res", str(ACC_RES), "--out", str(tmp), "--device", "cuda",
+                            "--name", "googlemap_1k_448x448_new"])
+    steps, fetch_ms, step_ms, losses = DATA_TRAIN_PAIRS_RUN // TRAIN_BATCH, [], [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+    real_loop = cli_train.train_loop
+
+    def loop(state, step_fn, batches, *args, **kw):
+        def fetched():
+            it = iter(batches)
+            while True:
+                if len(fetch_ms) == DATA_PROFILE_FROM:
+                    prof.__enter__()
+                    window["t0"] = time.perf_counter()
+                t = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                torch.cuda.synchronize()
+                fetch_ms.append((time.perf_counter() - t) * 1e3)
+                yield batch
+
+        def step(state, batch):
+            t = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(metrics["total_loss"]))
+            if len(step_ms) == steps and "t0" in window:
+                window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+                prof.__exit__(None, None, None)
+            return state, metrics
+
+        return real_loop(state, step, fetched(), *args, **kw)
+
+    kernels.reset_launch_counts()
+    cli_train.train_loop = loop
+    t0 = time.perf_counter()
+    try:
+        cli_train.main(["--dataset", "googlemap", "--data_path", str(tmp), "--workspace", str(tmp / "ws"),
+                        "--gpu_batch_size", str(TRAIN_BATCH), "--total_pairs", str(DATA_TRAIN_PAIRS_RUN),
+                        "--num_workers", str(DATA_WORKERS), "--dinov2_weights", str(vit_pth), "--ft",
+                        "--ft_ckpt", str(HEAD_NPZ), "--device", "cuda", "--log_every", "1",
+                        "--eval_after", "--eval_max_pairs", "4"])
+    finally:
+        cli_train.train_loop = real_loop
+    cli_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    evts = device_kernel_events(torch, prof)
+    busy_ms = sum(device_us(e) for e in evts) / 1e3
+
+    ds = HomographyDataset("googlemap", "train", str(tmp), (ACC_RES, ACC_RES), device="cuda")
+    loader = BatchLoader(ds, TRAIN_BATCH, num_workers=DATA_WORKERS, seed=1)
+    alone = []
+    try:
+        it = loader.batches(DATA_LOADER_BATCHES)
+        for _ in range(DATA_LOADER_BATCHES):
+            t = time.perf_counter()
+            batch = next(it)
+            torch.cuda.synchronize()
+            alone.append((time.perf_counter() - t) * 1e3)
+    finally:
+        loader.close()
+    read = []
+    for i in range(4):
+        t = time.perf_counter()
+        ds.read(i)
+        read.append((time.perf_counter() - t) * 1e3)
+    shapes = {k: list(v.shape) for k, v in batch.items()}
+    step_med = statistics.median(step_ms[1:DATA_PROFILE_FROM])  # the profiler slows the host
+    loader_med = statistics.median(alone[1:])
+    out = {"train_dir": made, "cli_s": cli_s, "steps": len(step_ms), "batch": TRAIN_BATCH, "losses": losses,
+           "step_ms": step_ms, "step_ms_median": step_med, "fetch_ms_in_loop": fetch_ms,
+           "fetch_ms_in_loop_median": statistics.median(fetch_ms[1:DATA_PROFILE_FROM]),
+           "loader_ms_per_batch_alone": alone, "loader_ms_median": loader_med,
+           "loader_keeps_up": loader_med < step_med, "num_workers": DATA_WORKERS,
+           "read_ms_one_pair_one_thread": statistics.median(read), "batch_shapes": shapes,
+           "profiled_window": {"from_fetch": DATA_PROFILE_FROM, "wall_ms": window.get("wall_ms"),
+                               "device_kernel_ms": busy_ms,
+                               "device_busy_share": busy_ms / window["wall_ms"] if window.get("wall_ms") else None},
+           "launches": counts}
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"data: cli.train losses {losses} over {steps} steps")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"data: cli.train launched {counts}")
+    return out
+
+
+def phase_data(torch, np, m) -> dict:
+    """The dataset path of both CLIs on the card: (a) the image fixtures,
+    (b) `cli.test` over a PNG val directory against the same pairs in
+    memory, (c) `cli.train` over a googlemap-layout directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        vit_pth = tmp / "vit.pth"  # the flagship's backbone, so the CLIs need not draw it again
+        torch.save(m.vit.state_dict(), vit_pth)
+        out = {"nvidia_smi": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                            capture_output=True, text=True).stdout.strip(),
+               "fixtures": data_fixtures(np)}
+        out["eval_cli"] = data_eval_cli(torch, np, m, tmp / "eval", vit_pth)
+        out["train_cli"] = data_train_cli(torch, np, tmp / "train", vit_pth)
+    emit("data", **out)
+    fx, ev = out["fixtures"], out["eval_cli"]
+    if fx["differ"]:
+        raise AssertionError(f"data: fixtures decode unlike PIL: {fx['differ']}")
+    if not ev["mace_abs_diff"] <= DATA_MACE_TOL:
+        raise AssertionError(f"data: cli.test MACE {ev['mace_cli']} against {ev['mace_in_memory']} in memory")
+    if not ev["planted_channels_reversed_abs_diff"] > 10 * DATA_MACE_TOL:
+        raise AssertionError(f"data: the planted fault reads {ev['planted_channels_reversed_abs_diff']}")
+    return out
+
 def corr_model_flows(torch, run) -> list:
     """How K2 and K3 tile the flows the model itself hands them: `run()` is
     called with `kernels.local_corr` and `kernels.local_corr_bwd` wrapped so
@@ -1597,11 +1868,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if not (ROOT / "gfnet_tpu_torch" / "csrc").is_dir() or not all(
-            f.exists() for f in (HEAD_NPZ, TINY_HEAD, JAX_ACCURACY, ORACLE)):
+            f.exists() for f in (HEAD_NPZ, TINY_HEAD, JAX_ACCURACY, ORACLE, FIXTURES)):
         print(f"chip_smoke: run from a checkout of the repository ({ROOT} lacks gfnet_tpu_torch, "
               "the trained heads or the accuracy readings)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    LOG.unlink(missing_ok=True)  # this run's lines only
     t_start = time.perf_counter()
     seconds: dict = {}
 
@@ -1622,6 +1894,7 @@ def main() -> int:
         flag, matcher = timed("flagship", phase_flagship, torch, np)
         timed("flagship_f32", phase_flagship_f32, torch, np, matcher)
         acc_launches = timed("accuracy", phase_accuracy, torch, matcher)
+        timed("data", phase_data, torch, np, matcher)
         k3 = timed("k3", phase_k3, torch)
         timed("tiny_train", phase_tiny_grads, torch, np)
         train = timed("trainer", phase_trainer, torch, np, matcher)

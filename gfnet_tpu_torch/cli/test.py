@@ -2,9 +2,10 @@
 
 Counterpart of `gfnet_tpu/cli/test.py`, with its flags (ref `test.py:14-18`:
 --conf_path, --ckpt_path, --dataset, plus --data_path, --max_pairs,
---dinov2_weights, --tiny, --batch); `--device` names the device and
-defaults to `cuda`. Reports auc@{3,5,10,20}, mean ACE and runtime (ref
-`test.py:70-75`) as the same JSON. Without DINOv2 weights the backbone is
+--dinov2_weights, --tiny, --batch); `--device` names the device of the
+matcher and of the dataset's pixels (files decode on the host without PIL,
+`data/imageio`) and defaults to `cuda`. Reports auc@{3,5,10,20}, mean ACE
+and runtime (ref `test.py:70-75`) as the same JSON. Without DINOv2 weights the backbone is
 the JAX package's seed-0 random ViT (`utils/jax_init.py`).
 """
 
@@ -68,7 +69,8 @@ def main(argv=None):
 
     ds_name = {"googlemap_448x448": "googlemap"}.get(args.dataset, args.dataset)
     dataset = HomographyDataset(
-        dataset=ds_name, mode="val", data_path=args.data_path, input_resolution=(res, res)
+        dataset=ds_name, mode="val", data_path=args.data_path, input_resolution=(res, res),
+        device=args.device,
     )
     bench = HomographyBenchmark(dataset)
     results = bench.run(

@@ -3,8 +3,10 @@
 Counterpart of `gfnet_tpu/cli/train.py`, with its flags (ref `train.py:154-163`:
 --conf_path, --dataset, --gpu_batch_size, --ft, --ft_ckpt, plus --data_path,
 --workspace, --total_pairs, --ckpt_every, --multihost, ...); `--device`
-names the device kind and defaults to `cuda`. The loop follows the
-reference: k-step chunks of 25000 samples with a cosine-LR step and a
+names the device kind (the matcher's, and the dataset's pixels': files
+decode on the host without PIL in `--num_workers` threads, then crops,
+augmentations and pair synthesis run there) and defaults to `cuda`. The
+loop follows the reference: k-step chunks of 25000 samples with a cosine-LR step and a
 checkpoint per chunk (`train.py:65-67,122-138`), a checkpoint on interrupt
 (`train.py:143-146`) and auto-resume from the newest checkpoint, and with
 `--eval_after` the benchmark on the val set after training (ref
@@ -66,7 +68,8 @@ def main(argv=None, batches: Iterable[dict] | None = None):
     parser.add_argument("--workspace", type=str, default="workspace")
     parser.add_argument("--total_pairs", type=int, default=2_000_000)
     parser.add_argument("--ckpt_every", type=int, default=25_000)
-    parser.add_argument("--num_workers", type=int, default=8)
+    parser.add_argument("--num_workers", type=int, default=8,
+                        help="threads decoding image files ahead of the batch being made")
     parser.add_argument("--multihost", action="store_true",
                         help="one process a device over torch.distributed (torchrun's or "
                              "GFNET_COORDINATOR/GFNET_NUM_PROCESSES/GFNET_PROCESS_ID's environment)")
@@ -140,7 +143,7 @@ def main(argv=None, batches: Iterable[dict] | None = None):
 
         dataset = HomographyDataset(dataset=args.dataset, mode="train", data_path=args.data_path,
                                     input_resolution=cfg.initial_res, process_index=proc,
-                                    process_count=nproc)
+                                    process_count=nproc, device=device)
         loader = BatchLoader(dataset, args.batch_size, num_workers=args.num_workers, seed=proc)
         batches = loader.batches(max(total_steps - state.step, 0))
     logger = MetricLogger(enabled=proc == 0, jsonl_path=os.path.join(args.workspace, "metrics.jsonl"))
@@ -164,7 +167,7 @@ def main(argv=None, batches: Iterable[dict] | None = None):
         val_name = {"glunet_448x448_occlusion": "mscoco"}.get(args.dataset, args.dataset)
         try:
             val_ds = HomographyDataset(dataset=val_name, mode="val", data_path=args.data_path,
-                                       input_resolution=cfg.initial_res)
+                                       input_resolution=cfg.initial_res, device=device)
             results = HomographyBenchmark(val_ds).run(matcher, max_pairs=args.eval_max_pairs)
             logger.log(results, step=state.step * global_batch)
             print(json.dumps(results, indent=2))

@@ -1,39 +1,44 @@
-"""Host-side dataset + batch loader.
+"""Dataset and batch loader: files read on the host, pixels made on the device.
 
-Re-implements `datasets/homography_dataset_large_size.py:30-229`: per-dataset
-file lists (vis_ir_drone with random modality swap + 100px border crop,
-googlemap with bottom crop, glunet offline pairs with stored H json + mask),
-online random-homography synthesis, imagenet normalization — then batches to
-NHWC numpy, which the train step moves to the device (the analogue of
-torchrun's per-rank DataLoader; per-process file-list sharding covers
-multi-host). An own copy of the JAX package's `data/dataset.py`.
+Counterpart of the JAX package's `data/dataset.py`, which re-implements
+`datasets/homography_dataset_large_size.py:30-229`: per-dataset file lists
+(vis_ir_drone with random modality swap + 100px border crop, googlemap with
+bottom crop, glunet offline pairs with stored H json + mask), online
+random-homography synthesis, imagenet normalization, per-process file-list
+sharding for several processes, and `max_items`. The file lists, crops,
+stored homographies and the val resize's rescaled H are the JAX package's.
+
+Files decode on the host without PIL (`data/imageio`); the pixels then go
+through `data/augment` and `data/homography_synth` on `device` (default
+`cuda`; the CPU only when asked). Every numpy draw comes in the JAX
+package's order from the same generators, so one seed gives the same
+factors, crops and homographies. `HomographyDataset.read` is the host half
+(decode, json), `process` the device half; `BatchLoader` runs `read` in
+threads ahead of the calling thread, which runs `process`.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Iterator
 
 import numpy as np
-from PIL import Image
+import torch
 
-from gfnet_tpu_torch.data.augment import Compose, glunet_transforms, real_dataset_transforms
+from gfnet_tpu_torch.data.augment import Compose, glunet_transforms, real_dataset_transforms, resize
 from gfnet_tpu_torch.data.homography_synth import random_homography_pair
+from gfnet_tpu_torch.data.imageio import read_image
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
-def _load_rgb(path: str) -> Image.Image:
-    img = Image.open(path)
-    if img.mode != "RGB":
-        img = img.convert("RGB")
-    return img
-
-
 class HomographyDataset:
-    """Training/validation pairs (ref `HomographyDataset`)."""
+    """Training/validation pairs (ref `HomographyDataset`). Items hold
+    float32 image tensors on `device` and H_s2t as float32 numpy."""
 
     def __init__(
         self,
@@ -49,6 +54,7 @@ class HomographyDataset:
         seed: int = 0,
         process_index: int = 0,
         process_count: int = 1,
+        device="cuda",
     ):
         self.dataset = dataset
         self.mode = mode
@@ -56,12 +62,17 @@ class HomographyDataset:
         self.deformation_ratio = tuple(deformation_ratio)
         self.bi = bi
         self.normalize = normalize
+        from gfnet_tpu_torch.matcher.api import resolve_device
+
+        self.device = resolve_device(device)
         self.rng = np.random.default_rng(seed + process_index)
         if transforms is None and mode == "train":
             transforms = (
                 glunet_transforms() if "glunet" in dataset else real_dataset_transforms()
             )
         self.transforms = transforms
+        self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
+        self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
 
         imgs0: list[str] = []
         imgs1: list[str] = []
@@ -156,25 +167,41 @@ class HomographyDataset:
     def __len__(self) -> int:
         return len(self.imgs0)
 
-    def _border_crop(self, a: np.ndarray, b: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    def _border_crop(self, a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         if self.dataset == "vis_ir_drone":  # ref `:149-157`
             return a[100:-100, 100:-100], b[100:-100, 100:-100]
         if self.dataset == "googlemap":  # ref `:158-166`
             return a[:-100, :], b[:-100, :]
         return a, b
 
+    def read(self, index: int) -> dict[str, Any]:
+        """The host half of an item: both images decoded to uint8 RGB, the
+        stored H and the glunet mask. Draws nothing, so threads may run it."""
+        raw = {"img0": read_image(self.imgs0[index]), "img1": read_image(self.imgs1[index])}
+        if self.H_paths is not None:
+            with open(self.H_paths[index]) as f:
+                raw["H"] = np.asarray(json.load(f)["H"], np.float32)
+        if self.mask_paths is not None:
+            raw["mask"] = read_image(self.mask_paths[index], mode=None)
+        return raw
+
     def __getitem__(self, index: int) -> dict[str, Any]:
-        img0 = _load_rgb(self.imgs0[index])  # target-side list
-        img1 = _load_rgb(self.imgs1[index])  # source-side list
+        return self.process(index, self.read(index))
+
+    def process(self, index: int, raw: dict[str, Any]) -> dict[str, Any]:
+        """The device half of item `index` from its `read`: crops,
+        augmentations, pair synthesis and normalization, drawing from
+        `self.rng` in the JAX package's order."""
+        img0 = torch.from_numpy(raw["img0"]).to(self.device)  # target-side list
+        img1 = torch.from_numpy(raw["img1"]).to(self.device)  # source-side list
 
         if self.mode == "train":
-            a0, a1 = self._border_crop(np.asarray(img0), np.asarray(img1))
-            img0, img1 = Image.fromarray(a0), Image.fromarray(a1)
+            img0, img1 = self._border_crop(img0, img1)
             if self.transforms is not None:
                 img0 = self.transforms(img0, self.rng)
                 img1 = self.transforms(img1, self.rng)
-            arr0 = np.asarray(img0, np.float32) / 255.0
-            arr1 = np.asarray(img1, np.float32) / 255.0
+            arr0 = img0.to(torch.float32) / 255.0
+            arr1 = img1.to(torch.float32) / 255.0
             if "glunet" not in self.dataset:
                 dr = float(self.rng.choice(self.deformation_ratio))
                 crop_size = int(self.input_resolution[0] / (1 - dr))
@@ -183,69 +210,52 @@ class HomographyDataset:
                     arr0, arr1, crop_size, self.input_resolution, dr, self.bi, self.rng
                 )
             else:
-                with open(self.H_paths[index]) as f:
-                    H_s2t = np.asarray(json.load(f)["H"], np.float32)
+                H_s2t = raw["H"]
                 src, tgt = arr1, arr0  # offline pairs: source/target dirs
             sample = {
                 "im_A": self._norm(src),
                 "im_B": self._norm(tgt),
-                "H_s2t": H_s2t.astype(np.float32),
+                "H_s2t": np.asarray(H_s2t, np.float32),
             }
-            if self.mask_paths is not None:
-                mask = np.asarray(Image.open(self.mask_paths[index]), np.float32) / 255.0
-                sample["mask"] = mask
+            if "mask" in raw:
+                sample["mask"] = torch.from_numpy(raw["mask"]).to(self.device, torch.float32) / 255.0
             return sample
 
         # val: resize to input resolution, rescale stored H (ref `:192-209`)
-        w0, h0 = img0.size
-        w1, h1 = img1.size
+        h0, w0 = img0.shape[:2]
+        h1, w1 = img1.shape[:2]
         res = self.input_resolution[0]
-        img0 = img0.resize((res, res), Image.BICUBIC)
-        img1 = img1.resize((res, res), Image.BICUBIC)
-        with open(self.H_paths[index]) as f:
-            H = np.asarray(json.load(f)["H"], np.float32)
+        img0 = resize(img0, (res, res), "bicubic")
+        img1 = resize(img1, (res, res), "bicubic")
+        H = raw["H"]
         S0 = np.diag([res / w0, res / h0, 1.0]).astype(np.float32)
         S1 = np.diag([res / w1, res / h1, 1.0]).astype(np.float32)
         H_s2t = S1 @ H @ np.linalg.inv(S0)
         return {
-            "im_A": np.asarray(img1, np.float32) / 255.0,  # source raw [0,1]
-            "im_B": np.asarray(img0, np.float32) / 255.0,  # target raw [0,1]
+            "im_A": img1.to(torch.float32) / 255.0,  # source raw [0,1]
+            "im_B": img0.to(torch.float32) / 255.0,  # target raw [0,1]
             "H_s2t": H_s2t,
             "im_A_path": self.imgs1[index],
             "im_B_path": self.imgs0[index],
         }
 
-    def _norm(self, x: np.ndarray) -> np.ndarray:
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
         if not self.normalize:
             return x
-        return (x - IMAGENET_MEAN) / IMAGENET_STD
-
-
-_WORKER_DS: HomographyDataset | None = None
-
-
-def _loader_worker_init(dataset: HomographyDataset, seed: int) -> None:
-    global _WORKER_DS
-    _WORKER_DS = dataset
-    # distinct augmentation/synthesis stream per worker process
-    dataset.rng = np.random.default_rng([seed, os.getpid()])
-
-
-def _loader_worker_get(index: int) -> dict[str, Any]:
-    return _WORKER_DS[index]
+        return (x - self._mean) / self._std
 
 
 class BatchLoader:
-    """Prefetching batch iterator over worker PROCESSES.
+    """Batches of `HomographyDataset` items, decoded ahead in threads.
 
-    The reference uses 8 DataLoader worker processes (`train.py:123-133`);
-    a thread pool can't match that here because the per-sample work (PIL
-    decode + augmentation + cv2 homography warp) is GIL-heavy. Worker
-    processes decode/augment/warp in parallel while `prefetch` whole batches
-    are kept in flight, so the accelerator never waits on the host pipeline
-    (measured: scripts/profile_loader.py). num_workers=0 degrades to
-    synchronous in-process loading (CI/smoke-friendly).
-    """
+    `num_workers` threads decode (`dataset.read`) up to `num_workers`
+    batches ahead of the one being made; the calling thread makes each batch
+    on the dataset's device (`dataset.process`) and stacks it: im_A, im_B
+    (B, H, W, 3) float32 and H_s2t (B, 3, 3) float32 there, as the train
+    step takes them. The batch draws (`choice` from `seed`) and the
+    dataset's draws both come in the calling thread, in the order of the
+    JAX package's `num_workers=0` loader, so any thread count gives its
+    stream. num_workers=0 reads in the calling thread."""
 
     def __init__(
         self,
@@ -253,33 +263,26 @@ class BatchLoader:
         batch_size: int,
         num_workers: int = 8,
         seed: int = 0,
-        prefetch: int = 2,
         drop_keys: tuple[str, ...] = ("im_A_path", "im_B_path"),
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
-        self.prefetch = prefetch
+        self.num_workers = num_workers
         self.drop_keys = drop_keys
-        self.pool = None
-        if num_workers > 0:
-            import multiprocessing as mp
+        self.pool = ThreadPoolExecutor(num_workers) if num_workers > 0 else None
 
-            # spawn: never fork a process that already initialized CUDA
-            ctx = mp.get_context("spawn")
-            self.pool = ctx.Pool(
-                num_workers, initializer=_loader_worker_init,
-                initargs=(dataset, seed),
-            )
+    def _stack(self, samples: list[dict]) -> dict[str, torch.Tensor]:
+        out = {}
+        for k in samples[0]:
+            if k in self.drop_keys:
+                continue
+            vals = [s[k] for s in samples]
+            out[k] = (torch.stack(vals) if isinstance(vals[0], torch.Tensor)
+                      else torch.from_numpy(np.stack(vals)).to(self.dataset.device))
+        return out
 
-    def _stack(self, samples: list[dict]) -> dict[str, np.ndarray]:
-        return {
-            k: np.stack([s[k] for s in samples])
-            for k in samples[0]
-            if k not in self.drop_keys
-        }
-
-    def batches(self, num_batches: int) -> Iterator[dict[str, np.ndarray]]:
+    def batches(self, num_batches: int) -> Iterator[dict[str, torch.Tensor]]:
         n = len(self.dataset)
 
         def draw():
@@ -290,22 +293,25 @@ class BatchLoader:
                 yield self._stack([self.dataset[i] for i in draw()])
             return
 
-        from collections import deque
-
         pending: deque = deque()
+
+        def submit():
+            idx = draw()
+            pending.append((idx, [self.pool.submit(self.dataset.read, i) for i in idx]))
+
         submitted = 0
-        while submitted < min(self.prefetch + 1, num_batches):
-            pending.append(self.pool.map_async(_loader_worker_get, draw()))
+        while submitted < min(self.num_workers, num_batches):
+            submit()
             submitted += 1
         for _ in range(num_batches):
-            samples = pending.popleft().get()
+            idx, futures = pending.popleft()
+            raws = [f.result() for f in futures]
             if submitted < num_batches:
-                pending.append(self.pool.map_async(_loader_worker_get, draw()))
+                submit()
                 submitted += 1
-            yield self._stack(samples)
+            yield self._stack([self.dataset.process(i, r) for i, r in zip(idx, raws)])
 
     def close(self) -> None:
         if self.pool is not None:
-            self.pool.terminate()
-            self.pool.join()
+            self.pool.shutdown(wait=True, cancel_futures=True)
             self.pool = None

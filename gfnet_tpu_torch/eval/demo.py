@@ -3,8 +3,8 @@
 Counterpart of `gfnet_tpu/eval/demo.py`, the user-facing
 `demo_estimation` (ref `estimation.py:46-118`): takes two image paths (or
 arrays) + optional GT homography json, reports the corner error + runtime,
-and optionally renders a `match.png`. Reading image files needs PIL and
-drawing needs matplotlib; where either is missing it raises.
+and optionally renders a `match.png`. Image files are read without PIL
+(`data/imageio`); drawing needs matplotlib, and raises where it is missing.
 """
 
 from __future__ import annotations
@@ -16,19 +16,16 @@ import numpy as np
 
 from gfnet_tpu_torch.core.geometry import denormalize_corner_aligned
 from gfnet_tpu_torch.core.homography import ransac_homography
+from gfnet_tpu_torch.data.imageio import read_image
 from gfnet_tpu_torch.eval.benchmark import homography_to_host, corner_error_np, unit_image
 from gfnet_tpu_torch.utils import jax_init
 
 
 def _load_image(img) -> np.ndarray:
-    """An image path (read with PIL) or array → (H, W, 3) float32 in [0, 1]."""
+    """An image path (JPEG or PNG, `data/imageio`) or array → (H, W, 3)
+    float32 in [0, 1]."""
     if isinstance(img, str):
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise RuntimeError(f"reading {img} needs PIL (pillow), which is not installed; "
-                               "pass the image as an array instead") from e
-        return np.asarray(Image.open(img).convert("RGB"), np.float32) / 255.0
+        return read_image(img).astype(np.float32) / 255.0
     return unit_image(img).cpu().numpy()
 
 

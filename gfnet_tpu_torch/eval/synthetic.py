@@ -7,9 +7,10 @@ are exact, so a model trained for a few hundred steps must drive the
 benchmark MACE (ref `estimation.py:79-92`) far below the random-weight
 ~70px-cap baseline. Counterpart of the JAX package's `eval/synthetic.py`.
 
-`eval_pairs` makes the evaluation set with tensor ops on any device (the
-card's machine has no `cv2`): bicubic `F.interpolate`, a separable Gaussian
-blur, `core/geometry`'s four-point solve and bilinear `warp_perspective`.
+`eval_pairs` makes the evaluation set with tensor ops on any device (no
+`cv2` on the card's path): bicubic `F.interpolate`, a separable Gaussian
+blur, and `data/homography_synth.random_homography_pair` (`core/geometry`'s
+four-point solve and bilinear `warp_perspective`).
 Its numpy draws come in the JAX package's order, so one seed gives the same
 textures, homographies and photometric shifts; the homographies are solved
 in float64 on the host and rounded to float32 where the JAX package's are;
@@ -18,9 +19,10 @@ and differ from the `cv2` ones by interpolation rounding (a few levels).
 
 `train_batch` makes the training stream. On the host (no `device`) it
 keeps the JAX package's `cv2` arithmetic bit for bit (`_synth_pair_cv2`,
-`data/homography_synth.py`) and imports `cv2` when called; given a
-`device`, it makes the same pairs from the same numpy draws with the tensor
-ops of `eval_pairs` (`synth_pair`), as the card's learning run does.
+`data/homography_synth.random_homography_pair_cv2`) and imports `cv2` when
+called; given a `device`, it makes the same pairs from the same numpy draws
+with the tensor ops of `eval_pairs` (`synth_pair`), as the card's learning
+run does.
 """
 
 from __future__ import annotations
@@ -29,8 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gfnet_tpu_torch.core.geometry import (get_perspective_transform, transform_points,
-                                           warp_perspective)
+from gfnet_tpu_torch.data.homography_synth import bicubic, random_homography_pair
 
 Tensor = torch.Tensor
 
@@ -40,19 +41,13 @@ OCTAVES = ((4, 0.45), (16, 0.3), (64, 0.25))
 
 
 # ------------------------------------------------ the evaluation set (torch)
-def _bicubic(img: Tensor, hw: tuple[int, int]) -> Tensor:
-    """(H, W, C) float32 → (h, w, C), cv2.INTER_CUBIC's mapping and a = -0.75."""
-    x = img.permute(2, 0, 1)[None]
-    return F.interpolate(x, size=hw, mode="bicubic", align_corners=False)[0].permute(1, 2, 0)
-
-
 def make_texture(rng: np.random.Generator, size: int, device="cpu") -> Tensor:
     """Multi-octave smoothed noise (size, size, 3) float32 in [0, 1]: enough
     structure at every scale for correlation to be informative."""
     img = torch.zeros((size, size, 3), dtype=torch.float32, device=device)
     for octave, weight in OCTAVES:
         low = rng.uniform(0, 1, (octave, octave, 3)).astype(np.float32)
-        img += weight * _bicubic(torch.from_numpy(low).to(device), (size, size))
+        img += weight * bicubic(torch.from_numpy(low).to(device), (size, size))
     img -= img.min()
     return img / img.max().clamp_min(1e-6)
 
@@ -95,88 +90,6 @@ def modality_shift(img: Tensor, rng: np.random.Generator) -> Tensor:
     if rng.uniform() < 0.5:
         out = _gaussian_blur(out, rng.uniform(0.5, 1.5))
     return out.clamp(0.0, 1.0)
-
-
-def _solve4(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
-    """cv2.getPerspectiveTransform: the float64 homography taking 4 points to 4."""
-    f64 = lambda p: torch.from_numpy(np.asarray(p, np.float64))
-    return get_perspective_transform(f64(src), f64(dst)).numpy()
-
-
-def _inset(da: int, w: int, h: int) -> np.ndarray:
-    return np.array([[da // 2, da // 2], [w - da // 2 - 1, da // 2],
-                     [w - da // 2 - 1, h - da // 2 - 1], [da // 2, h - da // 2 - 1]], np.float32)
-
-
-def _four_point_warp(rng: np.random.Generator, da: int, w: int, h: int, img: Tensor,
-                     bi: bool) -> tuple[np.ndarray, Tensor]:
-    """Random 4-point perturbation warp + center crop
-    (ref `generate_random_H_large_size.py:6-36`), bilinear, zeros outside."""
-    tgt = _inset(da, w, h)
-    if bi:
-        src = np.array([[rng.integers(0, da), rng.integers(0, da)],
-                        [rng.integers(w - da, w), rng.integers(0, da)],
-                        [rng.integers(w - da, w), rng.integers(h - da, h)],
-                        [rng.integers(0, da), rng.integers(h - da, h)]], np.float32)
-    else:
-        src = tgt
-    H = _solve4(src, tgt)
-    H_t = torch.from_numpy(H.astype(np.float32)).to(img.device)
-    warped = warp_perspective(img[None], H_t[None], (h, w), align_corners=True)[0]
-    return H.astype(np.float32), warped[da // 2:h - da // 2, da // 2:w - da // 2]
-
-
-def _resize_shorter(img: Tensor, size: int) -> Tensor:
-    h, w = img.shape[:2]
-    if h < w:
-        return _bicubic(img, (size, max(int(round(w * size / h)), 1)))
-    return _bicubic(img, (max(int(round(h * size / w)), 1), size))
-
-
-def random_homography_pair(img1: Tensor, img2: Tensor, crop_size: int, input_hw: tuple[int, int],
-                           deformation_ratio: float = 0.3, bi: bool = True,
-                           rng: np.random.Generator | None = None
-                           ) -> tuple[Tensor, Tensor, np.ndarray]:
-    """`data/homography_synth.random_homography_pair` with tensor images
-    (HWC float32, on any device): (im_src, im_tgt, H_s2t), images at
-    input_hw, H_s2t (float32, host) mapping source pixels → target pixels."""
-    rng = rng or np.random.default_rng()
-    assert img1.shape == img2.shape
-    h1, w1 = img1.shape[:2]
-    if w1 <= crop_size or h1 <= crop_size:
-        img1 = _resize_shorter(img1, crop_size + 10)
-        img2 = _resize_shorter(img2, crop_size + 10)
-        h1, w1 = img1.shape[:2]
-    x0 = int(rng.integers(0, w1 - crop_size))
-    y0 = int(rng.integers(0, h1 - crop_size))
-    img1 = img1[y0:y0 + crop_size, x0:x0 + crop_size]
-    img2 = img2[y0:y0 + crop_size, x0:x0 + crop_size]
-
-    h, w = img1.shape[:2]
-    da = int(w * deformation_ratio)
-    H_1t, img1 = _four_point_warp(rng, da, w, h, img1, bi=True)
-    H_2t, img2 = _four_point_warp(rng, da, w, h, img2, bi=bi)
-    H_1t2t = H_2t @ np.linalg.inv(H_1t)
-
-    inset = _inset(da, w, h)
-    # cv2.perspectiveTransform: float64 arithmetic, float32 result
-    proj = transform_points(torch.from_numpy(H_1t2t.astype(np.float64)),
-                            torch.from_numpy(inset.astype(np.float64))).numpy().astype(np.float32)
-    flow = proj - inset
-    hc, wc = img1.shape[:2]
-    corners = np.array([[0, 0], [wc - 1, 0], [wc - 1, hc - 1], [0, hc - 1]], np.float32)
-    H_s2t = _solve4(corners, corners + flow).astype(np.float32)
-
-    hi, wi = input_hw
-    if (hi, wi) != (hc, wc):
-        img1 = _bicubic(img1, input_hw)
-        img2 = _bicubic(img2, input_hw)
-        # ref applies the h-ratio on the left and w-ratio on the right
-        # (`generate_random_H_large_size.py:77-79`); square frames in practice
-        S_l = np.diag([hi / hc, hi / hc, 1.0]).astype(np.float32)
-        S_r = np.diag([wi / wc, wi / wc, 1.0]).astype(np.float32)
-        H_s2t = S_l @ H_s2t @ np.linalg.inv(S_r)
-    return img1, img2, H_s2t
 
 
 def synth_pair(rng: np.random.Generator, res: int, deformation_ratio: float = 0.15,
@@ -274,7 +187,7 @@ def _modality_shift_cv2(img: np.ndarray, rng: np.random.Generator) -> np.ndarray
 
 def _synth_pair_cv2(rng: np.random.Generator, res: int, deformation_ratio: float,
                     cross_modal: bool) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    from gfnet_tpu_torch.data.homography_synth import random_homography_pair as pair_cv2
+    from gfnet_tpu_torch.data.homography_synth import random_homography_pair_cv2 as pair_cv2
 
     tex = _make_texture_cv2(rng, res + res // 2)
     tex_b = _modality_shift_cv2(tex, rng) if cross_modal else tex

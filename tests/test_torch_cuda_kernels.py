@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the dataset path's device ops against the same ops on the CPU.
 
 Marked `cuda`: they skip where there is no GPU. The file imports neither JAX
 nor the JAX package, so it runs on a machine that has only PyTorch:
@@ -11,6 +12,7 @@ import math
 import pytest
 import torch
 
+from gfnet_tpu_torch.data import augment
 from gfnet_tpu_torch.eval.flows import kernel_flow
 from gfnet_tpu_torch.ops import kernels
 from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, fused_attention,
@@ -324,3 +326,72 @@ def test_local_correlation_pads_channels_tma_cannot_stage(cuda_device):
         kernels.local_corr(torch.zeros((1, 4, 4, 8), device=cuda_device), shifted, fl, 1)
     with pytest.raises(ValueError, match="16-byte aligned"):
         kernels.local_corr_bwd(torch.zeros((1, 4, 4, 9), device=cuda_device), shifted, fl, 1)
+
+
+# --------------------------------------------- the dataset path on the card
+def _texture_u8(seed: int, h: int, w: int) -> torch.Tensor:
+    from gfnet_tpu_torch.eval.synthetic import make_texture, to_uint8
+
+    tex = make_texture(__import__("numpy").random.default_rng(seed), max(h, w))
+    return to_uint8(tex[:h, :w])
+
+
+AUGMENT_OPS = {
+    "brightness": lambda im: augment.brightness(im, 1.3),
+    "contrast": lambda im: augment.contrast(im, 0.6),
+    "saturation": lambda im: augment.saturation(im, 1.5),
+    "hue": lambda im: augment.hue(im, -0.17),
+    "gray": lambda im: augment.gray_rgb(augment.to_gray(im)),
+    "blur": lambda im: augment.gaussian_blur(im, 1.7),
+    "resize_bilinear": lambda im: augment.resize(im, (130, 97), "bilinear"),
+    "resize_bicubic": lambda im: augment.resize(im, (64, 50), "bicubic"),
+}
+
+
+@pytest.mark.parametrize("op", sorted(AUGMENT_OPS))
+def test_augmentation_on_the_card_equals_the_cpu(cuda_device, op):
+    """The same integer and float arithmetic on both devices: within 1 level."""
+    img = _texture_u8(3, 96, 80)
+    want = AUGMENT_OPS[op](img)
+    got = AUGMENT_OPS[op](img.to(cuda_device)).cpu()
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert (got.int() - want.int()).abs().max() <= 1
+
+
+def test_pair_synthesis_on_the_card_equals_the_cpu(cuda_device):
+    import numpy as np
+
+    from gfnet_tpu_torch.data.homography_synth import random_homography_pair
+
+    a = _texture_u8(4, 150, 170).float() / 255.0
+    b = _texture_u8(5, 150, 170).float() / 255.0
+    kw = dict(crop_size=120, input_hw=(96, 96), deformation_ratio=0.3, bi=True)
+    cpu = random_homography_pair(a, b, rng=np.random.default_rng(1), **kw)
+    gpu = random_homography_pair(a.to(cuda_device), b.to(cuda_device), rng=np.random.default_rng(1), **kw)
+    np.testing.assert_array_equal(gpu[2], cpu[2])
+    for g, c in zip(gpu[:2], cpu[:2]):
+        assert (g.cpu() - c).abs().max() <= 1 / 255
+
+
+def test_val_read_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    import json
+
+    import numpy as np
+
+    from gfnet_tpu_torch.data.dataset import HomographyDataset
+    from gfnet_tpu_torch.data.imageio import write_png
+
+    d = tmp_path / "test" / "synth_1k_112x112"
+    for sub in ("source", "target", "H_s2t"):
+        (d / sub).mkdir(parents=True)
+    for i, (h, w) in enumerate(((150, 130), (112, 112))):
+        write_png(d / "source" / f"{i:05d}.png", _texture_u8(6 + i, h, w))
+        write_png(d / "target" / f"{i:05d}.png", _texture_u8(8 + i, w, h))
+        (d / "H_s2t" / f"{i:05d}.json").write_text(json.dumps({"H": np.eye(3).tolist()}))
+    kw = dict(dataset="synthetic_tiny", mode="val", data_path=str(tmp_path), input_resolution=(112, 112))
+    cpu, gpu = HomographyDataset(**kw, device="cpu"), HomographyDataset(**kw, device=cuda_device)
+    for i in range(len(cpu)):
+        c, g = cpu[i], gpu[i]
+        np.testing.assert_array_equal(g["H_s2t"], c["H_s2t"])
+        for k in ("im_A", "im_B"):
+            assert g[k].is_cuda and (g[k].cpu() - c[k]).abs().max() <= 1 / 255

@@ -184,7 +184,7 @@ def test_benchmark_mace_on_the_val_directory_and_on_pairs_made_here(tiny_matcher
     from gfnet_tpu_torch.data.dataset import HomographyDataset
 
     ds = HomographyDataset(dataset="synthetic_tiny", mode="val", data_path=str(valdir),
-                           input_resolution=(112, 112))
+                           input_resolution=(112, 112), device="cpu")
     mace, errors = benchmark_mace(tiny_matcher, [ds[i] for i in range(2)], num_matches=500)
     assert len(errors) == 2 and mace == float(np.mean(errors))
     assert all(0.0 <= e <= 70.0 for e in errors)
@@ -212,11 +212,21 @@ def test_demo_estimation_from_files_writes_the_plot(tiny_matcher, valdir, tmp_pa
     assert 0.0 <= err and runtime > 0 and out.stat().st_size > 0
 
 
-def test_demo_says_what_is_missing_without_pil(tiny_matcher, valdir, monkeypatch):
+def test_demo_reads_a_png_and_a_jpeg_without_pil(tiny_matcher, valdir, tmp_path, monkeypatch):
+    """The demo reads image files through `data/imageio`: with PIL blocked,
+    a PNG of the val directory and a JPEG fixture read as PIL reads them."""
+    from gfnet_tpu_torch.eval import demo
+
+    jpeg = os.path.join(REPO, "tests", "data", "images", "jpeg_420_q95.jpg")
+    png = str(valdir / "test" / "synth_1k_112x112" / "source" / "00000.png")
     monkeypatch.setitem(sys.modules, "PIL", None)
-    src = str(valdir / "test" / "synth_1k_112x112" / "source" / "00000.png")
-    with pytest.raises(RuntimeError, match="PIL"):
-        demo_estimation(tiny_matcher, src, src)
+    for path, want in ((png, None), (jpeg, np.load(jpeg.replace(".jpg", ".npz"))["rgb"])):
+        img = demo._load_image(path)
+        assert img.dtype == np.float32 and img.ndim == 3 and img.shape[-1] == 3
+        if want is not None:
+            np.testing.assert_array_equal(img, want.astype(np.float32) / 255.0)
+    err, runtime, H = demo_estimation(tiny_matcher, png, jpeg, num_matches=200)
+    assert err is None and runtime > 0 and H.shape == (3, 3)
 
 
 def test_cli_test_runs_the_tiny_config_on_the_cpu(valdir, tmp_path, capsys):
@@ -325,22 +335,32 @@ def test_orbax_directory_says_how_to_convert(tmp_path):
         load_head(str(tmp_path))
 
 
-def test_what_the_gpu_smoke_script_runs_needs_neither_cv2_nor_pil():
-    """The card's machine has neither: the modules `chip_smoke.py` imports,
-    and making evaluation pairs, must not load them."""
+def test_what_the_gpu_smoke_script_runs_needs_neither_cv2_nor_pil(tmp_path):
+    """The modules `chip_smoke.py` imports, making evaluation pairs, the
+    dataset path of the CLIs and one val item read from a directory must
+    load neither, nor JAX: with PIL and cv2 blocked they still run."""
     import subprocess
 
     code = (
         "import sys, torch\n"
+        "sys.modules['PIL'] = sys.modules['cv2'] = None\n"
         "import chip_smoke\n"
         "import gfnet_tpu_torch.cli.train, gfnet_tpu_torch.eval.benchmark, gfnet_tpu_torch.eval.flows\n"
         "import gfnet_tpu_torch.matcher.api, gfnet_tpu_torch.train.checkpoint, gfnet_tpu_torch.train.step\n"
+        "import gfnet_tpu_torch.data.dataset, gfnet_tpu_torch.data.augment, gfnet_tpu_torch.data.imageio\n"
+        "import gfnet_tpu_torch.cli.test\n"
+        "from gfnet_tpu_torch.data.dataset import HomographyDataset\n"
         "from gfnet_tpu_torch.eval.synthetic import eval_pairs\n"
+        "from gfnet_tpu_torch.tools import make_synth_valdir\n"
         "eval_pairs(1, 112, 0.3, cross_modal=True, device='cpu')\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('cv2', 'PIL', 'jax', 'flax', 'gfnet_tpu'))\n"
+        "make_synth_valdir.main(['--n', '1', '--res', '112', '--out', sys.argv[1], '--device', 'cpu'])\n"
+        "item = HomographyDataset('synthetic_tiny', 'val', sys.argv[1], (112, 112), device='cpu')[0]\n"
+        "assert tuple(item['im_A'].shape) == (112, 112, 3)\n"
+        "bad = sorted(k for k, v in sys.modules.items()\n"
+        "             if v is not None and k.split('.')[0] in ('cv2', 'PIL', 'jax', 'flax', 'gfnet_tpu'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

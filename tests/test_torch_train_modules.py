@@ -26,7 +26,7 @@ from gfnet_tpu.train.state import make_optimizer as j_make_optimizer
 from gfnet_tpu.utils.logging import MetricLogger as JMetricLogger
 from gfnet_tpu_torch.cli import train as cli_train
 from gfnet_tpu_torch.config import TrainConfig, tiny_test_config
-from gfnet_tpu_torch.data.homography_synth import random_homography_pair
+from gfnet_tpu_torch.data.homography_synth import random_homography_pair_cv2
 from gfnet_tpu_torch.eval import synthetic
 from gfnet_tpu_torch.models.common import BatchNorm
 from gfnet_tpu_torch.models.gfnet import GFNet
@@ -267,7 +267,7 @@ def test_random_homography_pair_matches_jax_package():
     tex = rng.uniform(0, 1, (150, 160, 3)).astype(np.float32)
     kw = dict(crop_size=100, input_hw=(64, 64), deformation_ratio=0.2, bi=True)
     want = j_random_homography_pair(tex, tex, rng=np.random.default_rng(6), **kw)
-    got = random_homography_pair(tex, tex, rng=np.random.default_rng(6), **kw)
+    got = random_homography_pair_cv2(tex, tex, rng=np.random.default_rng(6), **kw)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
 
