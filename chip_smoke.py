@@ -71,6 +71,21 @@ Phases, one JSON line each:
      threads, augmentations and pair synthesis on the card): finite losses,
      step ms, the loader's ms per batch alone and in the loop, the card's
      busy share over the steady steps;
+  orbax: the JAX package's Orbax checkpoints in the port (read without
+     orbax: `utils/orbax.py`, zstd in `csrc/zstd.cpp` built here): (a) every
+     leaf of the JAX trainer's step directory `tests/data/orbax/tiny_run`
+     equal to its `.npz`, and the Orbax flagship head equal to
+     `load_head_npz(r5b)`, bit for bit, with the head's read rate; (b)
+     `cli.test --ckpt_path <Orbax head>` at full width over the data phase's
+     val directory with `decoder.kv_norm: true` in the config: the MACE of
+     the data phase's `.npz` run within DATA_MACE_TOL, and without k/v
+     standardization (the planted fault) far outside; (c) `cli.train --ft
+     --ft_ckpt <Orbax head>` at full width over the data phase's googlemap
+     directory: the first loss within ORBAX_LOSS_RTOL of the `.npz` start's;
+     (d) the port's `Checkpointer` resumes JAX's step 2 on the card, the
+     third fed update against JAX's stored parameters (ORBAX_RESUME_ATOL;
+     the AdamW count one ahead far outside), then `cli.train --tiny`
+     auto-resumes the run and writes a later `step_<N>.pt`;
   learn: the port learns on the card: `eval/learnability.run` (the tiny
      config from the JAX package's seed-0 draw, 500 steps of 8 synthetic
      pairs made on the card, then `benchmark_mace` on 16 held-out pairs);
@@ -114,6 +129,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -223,6 +239,21 @@ DATA_PAIRS, DATA_MACE_TOL = 16, 1e-3
 # batches timed alone.
 DATA_TRAIN_PAIRS, DATA_TRAIN_HW, DATA_TRAIN_PAIRS_RUN = 32, (640, 740), 64
 DATA_WORKERS, DATA_PROFILE_FROM, DATA_LOADER_BATCHES = 8, 6, 6
+# The orbax phase: the JAX package's Orbax checkpoints read by the port
+# (`utils/orbax.py`, `scripts/make_orbax_fixtures_torch.py`'s fixtures).
+# (b) and (c) hold the Orbax head to the data phase's `.npz` runs: the same
+# weights bit for bit, so the data phase's MACE gate and the dist phase's
+# relative loss gate; the same runs without the config's k/v standardization
+# must read outside each gate by ORBAX_KV_FAULT_FACTOR. (d) holds the
+# third fed AdamW update after the port resumed JAX's step 2 to JAX's stored
+# parameters: float32 AdamW against optax differ by rounding (max |Δ| 1.2e-7
+# read on the CPU); the planted fault, the AdamW count one step ahead, moves
+# the bias correction by ~25% (9.1e-6 on the CPU): the gate lies between.
+ORBAX_FIXTURES = ROOT / "tests" / "data" / "orbax"
+ORBAX_KV_FAULT_FACTOR = 10
+ORBAX_LOSS_RTOL = 1e-4
+ORBAX_RESUME_ATOL = 1e-6
+ORBAX_FT_STEPS = 2
 LEARN_JAX = {"mace_random": 67.42307868745905, "mace_trained": 2.9560503634743203,
              "source": "workspace/learnability_500.json (scripts/learnability_e2e.py, CPU)"}
 
@@ -1161,21 +1192,18 @@ def data_train_cli(torch, np, tmp: Path, vit_pth: Path) -> dict:
     return out
 
 
-def phase_data(torch, np, m) -> dict:
+def phase_data(torch, np, m, tmp: Path) -> dict:
     """The dataset path of both CLIs on the card: (a) the image fixtures,
     (b) `cli.test` over a PNG val directory against the same pairs in
-    memory, (c) `cli.train` over a googlemap-layout directory."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as d:
-        tmp = Path(d)
-        vit_pth = tmp / "vit.pth"  # the flagship's backbone, so the CLIs need not draw it again
-        torch.save(m.vit.state_dict(), vit_pth)
-        out = {"nvidia_smi": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                                            capture_output=True, text=True).stdout.strip(),
-               "fixtures": data_fixtures(np)}
-        out["eval_cli"] = data_eval_cli(torch, np, m, tmp / "eval", vit_pth)
-        out["train_cli"] = data_train_cli(torch, np, tmp / "train", vit_pth)
+    memory, (c) `cli.train` over a googlemap-layout directory. The
+    directories and `vit.pth` stay in `tmp` for the orbax phase."""
+    vit_pth = tmp / "vit.pth"  # the flagship's backbone, so the CLIs need not draw it again
+    torch.save(m.vit.state_dict(), vit_pth)
+    out = {"nvidia_smi": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                        capture_output=True, text=True).stdout.strip(),
+           "fixtures": data_fixtures(np)}
+    out["eval_cli"] = data_eval_cli(torch, np, m, tmp / "eval", vit_pth)
+    out["train_cli"] = data_train_cli(torch, np, tmp / "train", vit_pth)
     emit("data", **out)
     fx, ev = out["fixtures"], out["eval_cli"]
     if fx["differ"]:
@@ -1185,6 +1213,232 @@ def phase_data(torch, np, m) -> dict:
     if not ev["planted_channels_reversed_abs_diff"] > 10 * DATA_MACE_TOL:
         raise AssertionError(f"data: the planted fault reads {ev['planted_channels_reversed_abs_diff']}")
     return out
+
+def orbax_read(np) -> dict:
+    """(a) The reader built on this machine: every leaf of the JAX trainer's
+    step directory equal to its `.npz`, and the Orbax flagship head equal to
+    `load_head_npz(r5b)`, bit for bit; the head's read rate on one thread."""
+    import torch
+
+    from gfnet_tpu_torch.utils import orbax
+    from gfnet_tpu_torch.utils.convert import load_head, load_head_npz
+
+    built = not any(orbax.BUILD_ROOT.glob(f"zstd_*/{orbax.LIB_NAME}"))
+    t0 = time.perf_counter()
+    orbax.load_library()
+    build_s = time.perf_counter() - t0
+    step_dir = ORBAX_FIXTURES / "tiny_run" / "tinyset" / "step_000000002"
+    got = orbax.flatten(orbax.read_checkpoint(step_dir))
+    with np.load(ORBAX_FIXTURES / "tiny_run.npz") as raw:
+        want = {k[5:]: raw[k] for k in raw.files if k.startswith("leaf/")}
+    differ = sorted(k for k in set(got) | set(want)
+                    if k not in got or k not in want or got[k].dtype != want[k].dtype
+                    or got[k].tobytes() != want[k].tobytes())
+    head_dir = ORBAX_FIXTURES / "flagship_head"
+    disk = sum(f.stat().st_size for f in head_dir.rglob("*") if f.is_file())
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        tree = orbax.read_checkpoint(head_dir)
+        times.append(time.perf_counter() - t)
+    decoded = sum(v.nbytes for v in orbax.flatten(tree).values())
+    sd, kv_norm = load_head(str(head_dir))
+    want_sd, _ = load_head_npz(str(HEAD_NPZ))
+    head_differ = sorted(k for k in set(sd) | set(want_sd)
+                         if k not in sd or k not in want_sd or not torch.equal(sd[k], want_sd[k]))
+    best = min(times)
+    return {"library_built": built, "library_load_s": build_s, "tiny_run_leaves": len(want),
+            "tiny_run_differ": differ, "head_bytes_on_disk": disk, "head_bytes_decoded": decoded,
+            "head_read_s": times, "head_read_mb_per_s": disk / best / 1e6,
+            "head_kv_norm": kv_norm, "head_tensors": len(want_sd), "head_differ": head_differ}
+
+
+def _kv_conf(tmp: Path, kv_norm: bool) -> Path:
+    """A config JSON of `ModelConfig()` with the decoder's k/v
+    standardization as given (the reference schema's defaults fill the rest)."""
+    path = tmp / f"flagship_kv_{int(kv_norm)}.json"
+    path.write_text(json.dumps({"dino_cfg": {"decoder_cfg": {"kv_norm": kv_norm}}}))
+    return path
+
+
+def orbax_serve(tmp: Path, data: dict) -> dict:
+    """(b) `cli.test --ckpt_path <Orbax head>` at full width over the data
+    phase's val directory, with `decoder.kv_norm: true` in the config,
+    against the data phase's `--ckpt_path r5b.npz` run; then the planted
+    fault: the same without k/v standardization."""
+    from gfnet_tpu_torch.cli import test as cli_test
+    from gfnet_tpu_torch.ops import kernels
+
+    out, key = {}, "mace_synthetic"
+    for name, kv in (("kv_norm_conf", True), ("planted_no_kv_norm", False)):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = cli_test.main(["--dataset", "synthetic", "--data_path", str(tmp / "eval"),
+                             "--conf_path", str(_kv_conf(tmp, kv)),
+                             "--ckpt_path", str(ORBAX_FIXTURES / "flagship_head"),
+                             "--dinov2_weights", str(tmp / "vit.pth"), "--device", "cuda"])
+        out[name] = {"mace": res[key], "abs_diff_to_npz_run": abs(res[key] - data["eval_cli"]["mace_cli"]),
+                     "cli_s": time.perf_counter() - t0, "launches": kernels.launch_counts()}
+    out["mace_npz_run"] = data["eval_cli"]["mace_cli"]
+    out["tol_px"] = DATA_MACE_TOL
+    return out
+
+
+def orbax_finetune(torch, tmp: Path, data: dict) -> dict:
+    """(c) `cli.train --ft --ft_ckpt <Orbax head>` at full width over the
+    data phase's googlemap directory (k/v config, B=8, ORBAX_FT_STEPS
+    steps): the first loss against the data phase's `--ft_ckpt r5b.npz` run;
+    then the planted fault: one step without k/v standardization."""
+    from gfnet_tpu_torch.cli import train as cli_train
+    from gfnet_tpu_torch.ops import kernels
+
+    real_loop = cli_train.train_loop
+    first_npz = data["train_cli"]["losses"][0]
+
+    def run(kv: bool, steps: int) -> dict:
+        losses = []
+
+        def loop(state, step_fn, batches, *args, **kw):
+            def step(state, batch):
+                state, metrics = step_fn(state, batch)
+                losses.append(float(metrics["total_loss"]))
+                return state, metrics
+
+            return real_loop(state, step, batches, *args, **kw)
+
+        kernels.reset_launch_counts()
+        cli_train.train_loop = loop
+        t0 = time.perf_counter()
+        try:
+            cli_train.main(["--dataset", "googlemap", "--data_path", str(tmp / "train"),
+                            "--workspace", str(tmp / f"ws_orbax_ft_kv{int(kv)}"),
+                            "--conf_path", str(_kv_conf(tmp, kv)), "--gpu_batch_size", str(TRAIN_BATCH),
+                            "--total_pairs", str(steps * TRAIN_BATCH), "--num_workers", str(DATA_WORKERS),
+                            "--dinov2_weights", str(tmp / "vit.pth"),
+                            "--ft", "--ft_ckpt", str(ORBAX_FIXTURES / "flagship_head"), "--device", "cuda"])
+        finally:
+            cli_train.train_loop = real_loop
+        return {"losses": losses, "first_loss_rel_diff": abs(losses[0] - first_npz) / abs(first_npz)
+                if losses else None, "cli_s": time.perf_counter() - t0, "launches": kernels.launch_counts()}
+
+    return {**run(True, ORBAX_FT_STEPS), "first_loss_npz_run": first_npz, "rtol": ORBAX_LOSS_RTOL,
+            "planted_no_kv_norm": run(False, 1)}
+
+
+def orbax_third_update(torch, np, ws: Path, count_offset: int = 0, device: str = "cuda") -> dict:
+    """The port's `Checkpointer` restores the JAX trainer's step 2 on the
+    card, then takes the fixture's third fed gradient (AdamW's count moved
+    by `count_offset`, the planted fault); max |Δ| to JAX's stored parameters."""
+    from gfnet_tpu_torch.config import TrainConfig, tiny_test_config
+    from gfnet_tpu_torch.models.gfnet import GFNet
+    from gfnet_tpu_torch.train.checkpoint import Checkpointer
+    from gfnet_tpu_torch.train.state import create_train_state
+    from gfnet_tpu_torch.utils.convert import flax_to_torch_head, flax_to_torch_head_moments
+
+    with np.load(ORBAX_FIXTURES / "tiny_run.npz") as f:
+        raw = {k: f[k] for k in f.files}
+
+    def sub(prefix: str) -> dict:
+        tree: dict = {}
+        for k, v in raw.items():
+            if k.startswith(prefix):
+                d = tree
+                *parents, leaf = k[len(prefix):].split("/")
+                for p in parents:
+                    d = d.setdefault(p, {})
+                d[leaf] = v
+        return tree
+
+    cfg = TrainConfig(**{k: raw[f"config/{k}"].item()
+                         for k in ("total_pairs", "ckpt_every_pairs", "grad_clip_norm")})
+    head = GFNet(tiny_test_config(), dtype=torch.float32).to(device)
+    state = create_train_state(head, cfg, int(raw["config/global_batch"]))
+    Checkpointer(str(ws), "tinyset").restore(state)
+    step = state.step
+    for s in state.optimizer.state.values():
+        s["step"] += count_offset
+    stats = sub("leaf/batch_stats/")
+    grads = flax_to_torch_head_moments(sub("grad3/"), stats)
+    for name, p in head.named_parameters():
+        p.grad = grads[name].to(device)
+    state.apply_gradients()
+    want = flax_to_torch_head({"params": sub("params3/"), "batch_stats": stats})
+    got = head.state_dict()
+    diff = max(float((got[n].cpu() - want[n]).abs().max()) for n, _ in head.named_parameters())
+    return {"restored_step": step, "max_abs_diff": diff}
+
+
+def orbax_resume(torch, np, tmp: Path) -> dict:
+    """(d) The JAX trainer's step directory resumed on the card: the restore,
+    the third update against JAX's (and the planted count fault), then
+    `cli.train --tiny` auto-resuming it."""
+    import contextlib
+    import io
+    import shutil
+
+    from gfnet_tpu_torch.cli import train as cli_train
+    from gfnet_tpu_torch.config import tiny_test_config
+
+    ws = tmp / "ws_jax_run"
+    shutil.copytree(ORBAX_FIXTURES / "tiny_run", ws)
+    sound = orbax_third_update(torch, np, ws)
+    planted = orbax_third_update(torch, np, ws, count_offset=1)
+    rng = np.random.default_rng(5)
+    res = tiny_test_config().initial_res[0]
+    batches = [synth_batch(torch, np, rng, TRAIN_BATCH, res) for _ in range(4)]
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        state = cli_train.main(["--tiny", "--workspace", str(ws), "--dataset", "tinyset",
+                                "--gpu_batch_size", str(TRAIN_BATCH), "--total_pairs", "48",
+                                "--ckpt_every", "24", "--dinov2_weights", str(tmp / "absent.pth"),
+                                "--device", "cuda", "--log_every", "1000"], batches=batches)
+    files = sorted(os.listdir(ws / "tinyset"))
+    return {"third_update": sound, "planted_count_plus_one": planted, "atol": ORBAX_RESUME_ATOL,
+            "cli_resumed_line": [l for l in printed.getvalue().splitlines() if "auto-resumed" in l],
+            "cli_final_step": state.step, "cli_s": time.perf_counter() - t0, "workspace_files": files}
+
+
+def phase_orbax(torch, np, tmp: Path, data: dict) -> dict:
+    """The JAX package's Orbax checkpoints in the port, on this machine:
+    (a) read, (b) an Orbax head served by `cli.test` at full width, (c)
+    fine-tuned from by `cli.train`, (d) a JAX run resumed."""
+    out = {"nvidia_smi": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                        capture_output=True, text=True).stdout.strip(),
+           "read": orbax_read(np)}
+    out["serve"] = orbax_serve(tmp, data)
+    out["finetune"] = orbax_finetune(torch, tmp, data)
+    out["resume"] = orbax_resume(torch, np, tmp)
+    emit("orbax", **out)
+    rd, sv, ft, rs = out["read"], out["serve"], out["finetune"], out["resume"]
+    if rd["tiny_run_differ"] or rd["head_differ"] or rd["head_kv_norm"] is not None:
+        raise AssertionError(f"orbax: read differs: {rd['tiny_run_differ'][:5]} {rd['head_differ'][:5]}")
+    if not sv["kv_norm_conf"]["abs_diff_to_npz_run"] <= DATA_MACE_TOL:
+        raise AssertionError(f"orbax: cli.test MACE {sv['kv_norm_conf']['mace']} against the .npz run's "
+                             f"{sv['mace_npz_run']}")
+    if not sv["planted_no_kv_norm"]["abs_diff_to_npz_run"] > ORBAX_KV_FAULT_FACTOR * DATA_MACE_TOL:
+        raise AssertionError(f"orbax: the planted k/v fault reads {sv['planted_no_kv_norm']}")
+    if min(sv["kv_norm_conf"]["launches"][k] for k in ("oneshot_attention", "local_corr")) == 0:
+        raise AssertionError(f"orbax: cli.test launched {sv['kv_norm_conf']['launches']}")
+    if len(ft["losses"]) != ORBAX_FT_STEPS or not ft["first_loss_rel_diff"] <= ORBAX_LOSS_RTOL:
+        raise AssertionError(f"orbax: fine-tune losses {ft['losses']} against the .npz start's "
+                             f"{ft['first_loss_npz_run']}")
+    if min(ft["launches"].values()) == 0:
+        raise AssertionError(f"orbax: cli.train launched {ft['launches']}")
+    planted = ft["planted_no_kv_norm"]["first_loss_rel_diff"]
+    if planted is None or not planted > ORBAX_KV_FAULT_FACTOR * ORBAX_LOSS_RTOL:
+        raise AssertionError(f"orbax: the planted k/v fault's first loss reads {ft['planted_no_kv_norm']}")
+    if rs["third_update"]["restored_step"] != 2 or not rs["third_update"]["max_abs_diff"] <= ORBAX_RESUME_ATOL:
+        raise AssertionError(f"orbax: resumed update {rs['third_update']}")
+    if not rs["planted_count_plus_one"]["max_abs_diff"] > ORBAX_RESUME_ATOL:
+        raise AssertionError(f"orbax: the planted count fault reads {rs['planted_count_plus_one']}")
+    if not rs["cli_resumed_line"] or "step 2" not in rs["cli_resumed_line"][0] or rs["cli_final_step"] <= 2:
+        raise AssertionError(f"orbax: cli.train did not resume the JAX run: {rs}")
+    if "step_000000002" not in rs["workspace_files"] or not any(
+            f.endswith(".pt") and int(f[5:14]) > 2 for f in rs["workspace_files"]):
+        raise AssertionError(f"orbax: workspace after cli.train: {rs['workspace_files']}")
+    return out
+
 
 def corr_model_flows(torch, run) -> list:
     """How K2 and K3 tile the flows the model itself hands them: `run()` is
@@ -1868,7 +2122,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if not (ROOT / "gfnet_tpu_torch" / "csrc").is_dir() or not all(
-            f.exists() for f in (HEAD_NPZ, TINY_HEAD, JAX_ACCURACY, ORACLE, FIXTURES)):
+            f.exists() for f in (HEAD_NPZ, TINY_HEAD, JAX_ACCURACY, ORACLE, FIXTURES, ORBAX_FIXTURES)):
         print(f"chip_smoke: run from a checkout of the repository ({ROOT} lacks gfnet_tpu_torch, "
               "the trained heads or the accuracy readings)", file=sys.stderr)
         return 2
@@ -1894,7 +2148,9 @@ def main() -> int:
         flag, matcher = timed("flagship", phase_flagship, torch, np)
         timed("flagship_f32", phase_flagship_f32, torch, np, matcher)
         acc_launches = timed("accuracy", phase_accuracy, torch, matcher)
-        timed("data", phase_data, torch, np, matcher)
+        with tempfile.TemporaryDirectory() as d:  # the data phase's directories, read again by orbax
+            data = timed("data", phase_data, torch, np, matcher, Path(d))
+            timed("orbax", phase_orbax, torch, np, Path(d), data)
         k3 = timed("k3", phase_k3, torch)
         timed("tiny_train", phase_tiny_grads, torch, np)
         train = timed("trainer", phase_trainer, torch, np, matcher)

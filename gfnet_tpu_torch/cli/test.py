@@ -61,7 +61,7 @@ def main(argv=None):
         print(f"WARNING: no DINOv2 weights at {args.dinov2_weights}; random backbone")
     if args.ckpt_path:
         head_state, kv_norm = load_head(args.ckpt_path)
-        cfg = cfg.with_kv_norm(kv_norm)
+        cfg = cfg.with_head_kv_norm(kv_norm)
         print(f"loaded checkpoint {args.ckpt_path}")
     # bf16 always, as the JAX package's `GFNetMatcher(cfg)`: `cfg.amp` picks nothing
     matcher = GFNetMatcher(cfg, device=args.device, dtype=torch.bfloat16, vit_state=vit_state,

@@ -116,7 +116,7 @@ def main(argv=None, batches: Iterable[dict] | None = None):
               "training with a random frozen backbone")
     if args.ft and args.ft_ckpt:  # fine-tune bootstrap (ref `train.py:53-56`)
         head_state, kv_norm = load_head(args.ft_ckpt)
-        cfg = cfg.with_kv_norm(kv_norm)
+        cfg = cfg.with_head_kv_norm(kv_norm)
         print(f"loaded fine-tune init from {args.ft_ckpt}")
     # bf16 always, as the JAX package's `GFNetMatcher(cfg)`: `cfg.amp` picks nothing
     matcher = GFNetMatcher(cfg, device=device, dtype=torch.bfloat16, vit_state=vit_state,

@@ -144,6 +144,13 @@ class ModelConfig:
         dec = dataclasses.replace(self.dino.decoder_cfg, kv_norm=bool(kv_norm))
         return self.replace(dino=dataclasses.replace(self.dino, decoder_cfg=dec))
 
+    def with_head_kv_norm(self, flag: bool | None) -> "ModelConfig":
+        """Copy with the k/v standardization a head file asks for: the
+        config's flag stays, and a file's `True` turns it on (JAX's
+        `GFNET_KV_NORM=1` OR the file's `__protocol_kv_norm__`). `flag` is
+        `load_head`'s: None where the file says nothing."""
+        return self.with_kv_norm(self.dino.decoder_cfg.kv_norm or bool(flag))
+
 
 def tiny_test_config() -> ModelConfig:
     """A CPU-runnable miniature of the architecture for unit tests: the same

@@ -12,9 +12,9 @@ alpha, RGB, RGBA, and palette or gray at 1, 2, 4 or 8 bits are read.
 Arithmetic-coded, 12-bit, lossless, hierarchical and CMYK JPEG, and Adam7 or
 16-bit PNG, raise with the file and the mode.
 
-The library builds at first use with the host C++ compiler (`$CXX`, else
-`c++` or `g++`; `-O3 -shared -fPIC`) into `gfnet_tpu_torch/_build/imageio_<hash>/`
-and is loaded with `ctypes`, which releases the interpreter lock during a
+The library builds at first use with the host C++ compiler
+(`utils/hostlib.py`) into `gfnet_tpu_torch/_build/imageio_<hash>/` and is
+loaded with `ctypes`, which releases the interpreter lock during a
 decode, so `read_images` decodes in a thread pool.
 """
 
@@ -22,20 +22,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
 import struct
-import subprocess
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
+from gfnet_tpu_torch.utils.hostlib import BUILD_ROOT, build_library
+
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "imageio.cpp"
-BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 LIB_NAME = "libgfnet_imageio.so"
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _ERR_LEN = 512
@@ -45,28 +42,10 @@ class ImageFormatError(ValueError):
     """A file this module does not decode: its format, or a mode of it."""
 
 
-def _compiler() -> str:
-    for cand in (os.environ.get("CXX"), "c++", "g++"):
-        if cand and shutil.which(cand):
-            return shutil.which(cand)
-    raise RuntimeError("no C++ compiler found ($CXX, c++, g++): gfnet_tpu_torch/data/imageio.py "
-                       "builds its image decoder with one")
-
-
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (once a source hash) and load the image library."""
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCE.read_bytes()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / f"imageio_{digest}"
-    lib_path = out_dir / LIB_NAME
-    if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}"
-        proc = subprocess.run([_compiler(), *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"building {SOURCE.name} failed:\n{proc.stdout}")
-        os.replace(tmp, lib_path)  # a concurrent loader never sees a half-written file
+    lib_path = build_library(SOURCE, LIB_NAME, "imageio")
     lib = ctypes.CDLL(str(lib_path))
     p, i, i64, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_char_p
     ip = ctypes.POINTER(ctypes.c_int)

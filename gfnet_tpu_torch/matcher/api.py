@@ -129,16 +129,17 @@ class GFNetMatcher:
                         dinov2_weights: str | None = None, **kw) -> "GFNetMatcher":
         """A matcher from a reference-format config JSON, a head checkpoint
         (`.npz` in the JAX package's flat `params/...`, `batch_stats/...`
-        layout, or a reference torch `.pth`; `utils.convert.load_head`) and,
-        where the file exists, DINOv2 weights (`.npz` as
-        `tools/convert_dinov2.py` writes it, or the public `.pth`). A head
-        trained with k/v standardization switches it on."""
+        layout, a reference torch `.pth`, or an Orbax directory of
+        {params, batch_stats}; `utils.convert.load_head`) and, where the
+        file exists, DINOv2 weights (`.npz` as `tools/convert_dinov2.py`
+        writes it, or the public `.pth`). The config's k/v standardization
+        stays on; a head whose file says it was trained with it switches it on."""
         from gfnet_tpu_torch.utils.convert import load_head, load_vit
 
         cfg = ModelConfig.from_json(conf_path) if conf_path else ModelConfig()
         if ckpt_path:
             kw["head_state"], kv_norm = load_head(ckpt_path)
-            cfg = cfg.with_kv_norm(kv_norm)
+            cfg = cfg.with_head_kv_norm(kv_norm)
         if dinov2_weights and os.path.exists(dinov2_weights):
             kw["vit_state"] = load_vit(dinov2_weights)
         return cls(cfg, **kw)

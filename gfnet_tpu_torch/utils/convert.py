@@ -9,7 +9,12 @@
     keys → (state_dict, kv_norm); `load_vit_npz`: converted DINOv2 weights;
   - `load_head_pth`, `load_vit_pth`: a reference `.pth` head and the public
     DINOv2 `.pth`, whose names the port's modules share;
-  - `load_head`, `load_vit`: either format, by the file's extension;
+  - `load_head_orbax`: an Orbax checkpoint directory of {params, batch_stats},
+    as the JAX package's `load_head_checkpoint` restores it (`utils/orbax.py`
+    reads it without orbax);
+  - `load_head`, `load_vit`: any of these formats, by the path;
+  - `flax_to_torch_head_moments`: an optax moment tree (AdamW's `mu`, `nu`)
+    laid out as the head's parameters, through the same bridge;
   - `jax_head_state`, `jax_vit_state`: the weights the JAX package's
     `GFNetMatcher(cfg, seed=seed)` draws (`utils/jax_init.py`), as state dicts.
 
@@ -194,15 +199,15 @@ def load_vit_npz(path: str) -> dict:
         return flax_to_torch_vit(_nest(raw))
 
 
-def load_head_npz(path: str) -> tuple[dict, bool]:
+def load_head_npz(path: str) -> tuple[dict, bool | None]:
     """Read an `.npz` head (flat `params/...` and `batch_stats/...` keys, as
     `workspace/trained_head_*.npz`) → (port state dict, kv_norm). kv_norm is
     the `__protocol_kv_norm__` flag of heads trained with k/v
-    standardization; the caller passes it to the config
-    (`ModelConfig.with_kv_norm`)."""
+    standardization, None when the file carries none; the caller turns the
+    config's flag on when it is set (`ModelConfig.with_head_kv_norm`)."""
     flag = "__protocol_kv_norm__"
     with np.load(path) as raw:
-        kv_norm = bool(raw[flag]) if flag in raw.files else False
+        kv_norm = bool(raw[flag]) if flag in raw.files else None
         return flax_to_torch_head(_nest(raw, skip=(flag,))), kv_norm
 
 
@@ -221,24 +226,54 @@ def load_vit_pth(path: str) -> dict:
     return {k: v for k, v in _torch_state(path).items() if k != "mask_token"}
 
 
-def load_head_pth(path: str) -> tuple[dict, bool]:
-    """A reference GFNet `.pth` → (port state dict, kv_norm=False): the
-    reference's module names are the port's; BatchNorm's
-    `num_batches_tracked` counters, which the port's BatchNorm lacks, are
-    dropped."""
+def load_head_pth(path: str) -> tuple[dict, None]:
+    """A reference GFNet `.pth` → (port state dict, kv_norm=None: the file
+    says nothing of it): the reference's module names are the port's;
+    BatchNorm's `num_batches_tracked` counters, which the port's BatchNorm
+    lacks, are dropped."""
     sd = _torch_state(path)
-    return {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}, False
+    return {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}, None
 
 
-def load_head(path: str) -> tuple[dict, bool]:
-    """A head checkpoint, `.npz` or `.pth` → (port state dict, kv_norm). An
-    orbax directory raises: reading it needs JAX's orbax."""
+def float32_tree(tree):
+    """Leaves as float32 numpy (a bfloat16 leaf comes as a torch tensor)."""
+    if isinstance(tree, dict):
+        return {k: float32_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return np.asarray(tree, np.float32)
+
+
+def load_head_orbax(path: str) -> tuple[dict, None]:
+    """An Orbax checkpoint directory holding exactly {params, batch_stats},
+    as the JAX package's `load_head_checkpoint` restores one → (port state
+    dict in float32, kv_norm=None: Orbax heads carry no flag). A directory
+    with other top-level keys raises, as JAX's loader does: a trainer's
+    `step_<N>/` directory (step, params, batch_stats, opt_state) comes into
+    the port through `train.checkpoint.Checkpointer`'s auto-resume."""
+    from gfnet_tpu_torch.utils.orbax import OrbaxFormatError, checkpoint_leaves, read_checkpoint
+
+    if not os.path.isfile(os.path.join(path, "_METADATA")):
+        raise OrbaxFormatError(
+            f"{path} is a directory but not an orbax checkpoint (no _METADATA); a head is an "
+            ".npz, a .pth, or an orbax directory of {params, batch_stats}")
+    top = sorted({leaf[0] for leaf in checkpoint_leaves(path)})
+    if top != ["batch_stats", "params"]:
+        raise OrbaxFormatError(
+            f"{path} holds the top-level keys {top}, not a head's ['batch_stats', 'params'] "
+            "(the JAX package's load_head_checkpoint refuses it too). A trainer's step "
+            "directory resumes its run instead: point cli.train's --workspace/--dataset at the "
+            "directory above it, and train.checkpoint.Checkpointer restores it")
+    return flax_to_torch_head(float32_tree(read_checkpoint(path))), None
+
+
+def load_head(path: str) -> tuple[dict, bool | None]:
+    """A head checkpoint, `.npz`, `.pth` or Orbax directory → (port state
+    dict, kv_norm): the file's k/v-standardization flag, or None where the
+    file says nothing of it. Callers keep the config's flag unless the file
+    turns it on, as the JAX package ORs `GFNET_KV_NORM` with the `.npz`'s flag."""
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is an orbax checkpoint directory, which only the JAX package reads. "
-            "Turn it into an .npz with the JAX package first: restore it with "
-            "gfnet_tpu.utils.convert.load_head_checkpoint(path, GFNetMatcher(cfg).head_vars) "
-            "and np.savez the leaves under their '/'-joined paths (params/..., batch_stats/...)")
+        return load_head_orbax(path)
     if path.endswith(".npz"):
         return load_head_npz(path)
     return load_head_pth(path)
@@ -247,6 +282,16 @@ def load_head(path: str) -> tuple[dict, bool]:
 def load_vit(path: str) -> dict:
     """DINOv2 weights, converted `.npz` or public `.pth` → ViT state dict."""
     return load_vit_npz(path) if path.endswith(".npz") else load_vit_pth(path)
+
+
+def flax_to_torch_head_moments(moments: dict, batch_stats: dict) -> dict:
+    """An optimizer moment tree shaped as the head's params (optax AdamW's
+    `mu` or `nu`) → {parameter name: tensor}, laid out as `flax_to_torch_head`
+    lays out the weights (Dense transposed, HWIO → OIHW, scans unstacked).
+    `batch_stats` fills the running statistics the bridge walks; they are
+    dropped from the result."""
+    sd = flax_to_torch_head({"params": moments, "batch_stats": batch_stats})
+    return {k: v for k, v in sd.items() if not k.endswith(("running_mean", "running_var"))}
 
 
 def jax_vit_state(cfg, seed: int = 0) -> dict:

@@ -35,12 +35,20 @@ gate's tolerance:
     the backbone `GFNetMatcher(seed=0)` drew before it drew the JAX
     package's (torch-seeded, its patch embedding U(±1/√588)).
 
+  - the Orbax reader and weight bridge (`orbax` runs these alone, on the
+    card or, without one, on the CPU): optax's `mu` and `nu` swapped, one
+    square Dense kernel's `mu` left untransposed, AdamW's count one ahead,
+    the zstd decoder built without rotating its repeat offsets (the source
+    edited in a temporary copy), and one byte of a data file of the Orbax
+    flagship head flipped (in a copy): the resumed update's max |Δ| against
+    `ORBAX_RESUME_ATOL`, or what the read raises.
+
 Exits 1 if a planted kernel fault stays inside its gate, or a sound run
 does not pass its gate; the accuracy gate's faults are reported, caught or
-not. Needs one GPU; run from the repository root (`accuracy` runs the
-accuracy gate's readings alone):
+not. Needs one GPU but for `orbax`; run from the repository root
+(`accuracy` runs the accuracy gate's readings alone):
 
-    python3 scripts/plant_faults_torch.py [accuracy | k1]
+    python3 scripts/plant_faults_torch.py [accuracy | k1 | orbax]
 """
 
 from __future__ import annotations
@@ -347,8 +355,117 @@ def accuracy_faults(caught: list) -> None:
                     chip_smoke.accuracy_reading(torch, m, sets), False, caught)
 
 
+def _orbax_update_reading(fault: str, caught: list, **kw) -> None:
+    import shutil
+    import tempfile
+
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    with tempfile.TemporaryDirectory() as d:
+        ws = Path(d) / "ws"
+        shutil.copytree(chip_smoke.ORBAX_FIXTURES / "tiny_run", ws)
+        try:
+            err = chip_smoke.orbax_third_update(torch, np, ws, device=device, **kw)["max_abs_diff"]
+        except (ValueError, RuntimeError) as e:
+            caught.append(True)
+            print(json.dumps({"fault": fault, "gate": "orbax (d)", "raised": str(e)[:300], "caught": True}),
+                  flush=True)
+            return
+    tol = chip_smoke.ORBAX_RESUME_ATOL
+    caught.append(not err <= tol)  # as the phase reads it: NaN fails the gate
+    print(json.dumps({"fault": fault, "gate": "orbax (d) third update", "max_abs_err": err, "atol": tol,
+                      "caught": not err <= tol}), flush=True)
+
+
+def orbax_faults(caught: list) -> None:
+    """The reader's and the bridge's faults against the orbax phase's gates."""
+    import ctypes
+    import shutil
+    import subprocess
+    import tempfile
+    from unittest import mock
+
+    from gfnet_tpu_torch.utils import convert, hostlib, orbax
+
+    sound: list = []
+    _orbax_update_reading("sound", sound)
+    caught.append(not sound[0])  # the sound reading passes its gate
+    real_read = orbax.read_checkpoint
+
+    def swapped(path):
+        tree = real_read(path)
+        adam = tree["opt_state"]["1"]["0"]
+        adam["mu"], adam["nu"] = adam["nu"], adam["mu"]
+        return tree
+
+    with mock.patch.object(orbax, "read_checkpoint", swapped):
+        _orbax_update_reading("mu and nu swapped", caught)
+
+    real_moments = convert.flax_to_torch_head_moments
+    calls = []
+
+    def untransposed(moments, stats):
+        out = real_moments(moments, stats)
+        calls.append(1)
+        if len(calls) == 1:  # mu only: the crossview's first k projection (square)
+            name = "dino_decoder.cross_attn_blocks.0.attn.k_proj.weight"
+            out[name] = out[name].T.contiguous()
+        return out
+
+    with mock.patch.object(convert, "flax_to_torch_head_moments", untransposed):
+        _orbax_update_reading("one square Dense mu not transposed", caught)
+    _orbax_update_reading("AdamW count one ahead", caught, count_offset=1)
+
+    source = orbax.SOURCE.read_text()
+    rotate = ("        rep[2] = rep[1];\n        rep[1] = rep[0];\n        rep[0] = (uint32_t)offset;\n"
+              "      } else {")
+    assert source.count(rotate) == 1
+    with tempfile.TemporaryDirectory() as d:
+        mutant = Path(d) / "zstd_no_rotate.cpp"
+        mutant.write_text(source.replace(rotate, "        rep[0] = (uint32_t)offset;\n      } else {"))
+        lib_path = Path(d) / "libmutant.so"
+        subprocess.run([hostlib.compiler(), *hostlib.CXX_FLAGS, str(mutant), "-o", str(lib_path)], check=True)
+        lib = ctypes.CDLL(str(lib_path))
+        real_lib = orbax.load_library()
+        for fn in ("gfnet_zstd_decompress", "gfnet_zstd_content_size", "gfnet_crc32c"):
+            getattr(lib, fn).argtypes = getattr(real_lib, fn).argtypes
+            getattr(lib, fn).restype = getattr(real_lib, fn).restype
+        with mock.patch.object(orbax, "load_library", lambda: lib):
+            _orbax_read_reading("zstd repeat offsets not rotated", caught)
+
+    with tempfile.TemporaryDirectory() as d:
+        head = Path(d) / "flagship_head"
+        shutil.copytree(chip_smoke.ORBAX_FIXTURES / "flagship_head", head)
+        biggest = max((f for f in head.rglob("d/*") if f.is_file()), key=lambda f: f.stat().st_size)
+        raw = bytearray(biggest.read_bytes())
+        raw[len(raw) // 3] ^= 0x04
+        biggest.write_bytes(bytes(raw))
+        _orbax_read_reading("one byte of a data file flipped", caught, head)
+
+
+def _orbax_read_reading(fault: str, caught: list, head: Path | None = None) -> None:
+    """Part (a) of the orbax phase under a fault: the Orbax flagship head
+    against `load_head_npz(r5b)`, bit for bit, or what the read raises."""
+    from gfnet_tpu_torch.utils.convert import load_head, load_head_npz
+
+    head = head or chip_smoke.ORBAX_FIXTURES / "flagship_head"
+    try:
+        sd, _ = load_head(str(head))
+    except ValueError as e:
+        caught.append(True)
+        print(json.dumps({"fault": fault, "gate": "orbax (a) read", "raised": str(e)[:300], "caught": True}),
+              flush=True)
+        return
+    want, _ = load_head_npz(str(chip_smoke.HEAD_NPZ))
+    err = max(float((sd[k] - want[k]).abs().max()) for k in want)
+    report(fault, "orbax (a) read, bit for bit", err, 0.0, caught)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv == ["orbax"]:
+        caught: list = []
+        orbax_faults(caught)
+        return 0 if all(caught) else 1
     if not torch.cuda.is_available():
         print("plant_faults_torch: needs a GPU", file=sys.stderr)
         return 2

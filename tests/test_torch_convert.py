@@ -26,7 +26,7 @@ from gfnet_tpu_torch.ops import kernels
 from gfnet_tpu_torch.utils.convert import flax_to_torch_head, flax_to_torch_vit, load_head_npz
 
 REPO = Path(__file__).resolve().parent.parent
-HEADS = {"tiny": ("workspace/trained_head_tiny.npz", False),
+HEADS = {"tiny": ("workspace/trained_head_tiny.npz", None),  # no flag in the file: None
          "flagship_r5b": ("workspace/trained_head_flagship_r5b.npz", True)}
 
 
@@ -122,6 +122,15 @@ def test_config_copy_reads_reference_json_like_jax(path):
     assert got == want
     assert tiny_test_config().with_kv_norm(False) == tiny_test_config()
     assert tiny_test_config().with_kv_norm(True).dino.decoder_cfg.kv_norm
+
+
+@pytest.mark.parametrize("conf", [False, True])
+@pytest.mark.parametrize("flag", [None, False, True])
+def test_head_file_only_turns_kv_norm_on(conf, flag):
+    """JAX's `GFNET_KV_NORM=1` OR the file's `__protocol_kv_norm__`: a head
+    that says nothing (None) or False keeps the config's flag."""
+    cfg = tiny_test_config().with_kv_norm(conf).with_head_kv_norm(flag)
+    assert cfg.dino.decoder_cfg.kv_norm is (conf or flag is True)
 
 
 def test_package_imports_neither_jax_nor_gfnet_tpu():

@@ -9,6 +9,9 @@ approx_max_k) and no GFNET_KV_NORM. The early-zero rule (rel < 1e-6 against
 a 1e-7 seed displacement) never fires on these inputs.
 """
 
+import copy
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,10 +21,10 @@ import torch
 from gfnet_tpu.config import tiny_test_config as jax_tiny_config
 from gfnet_tpu.matcher.api import GFNetMatcher as JGFNetMatcher
 from gfnet_tpu.utils.convert import load_head_checkpoint
-from gfnet_tpu_torch.config import tiny_test_config
+from gfnet_tpu_torch.config import ModelConfig, tiny_test_config
 from gfnet_tpu_torch.core.homography import corner_error
 from gfnet_tpu_torch.matcher import GFNetMatcher
-from gfnet_tpu_torch.utils.convert import flax_to_torch_vit, load_head_npz
+from gfnet_tpu_torch.utils.convert import flax_to_torch_vit, load_head, load_head_npz
 
 HEAD = "workspace/trained_head_tiny.npz"
 
@@ -139,3 +142,100 @@ def test_estimate_homography_batched_runs_and_single_is_first_pair(matchers):
     # under partitionable threefry both are hash(key, (0, 0)) for the first pair
     H = tm.estimate_homography(imA[0], imB[0], num_matches=300, key=key)
     torch.testing.assert_close(H, Hs[0], atol=1e-4, rtol=1e-4)
+
+
+def _conf_json(path, kv_norm: bool) -> str:
+    """A reference-format config JSON of the tiny config, k/v standardization
+    on or off in its decoder."""
+    cfg = tiny_test_config()
+    dec = cfg.dino.decoder_cfg
+    conf = {"dino_cfg": {"d_model": cfg.dino.d_model, "depth": cfg.dino.depth,
+                         "num_heads": cfg.dino.num_heads, "pos_embed_size": cfg.dino.pos_embed_size,
+                         "decoder_cfg": {"num_cross_attn": dec.num_cross_attn, "nhead": dec.nhead,
+                                         "train_avg_length": dec.train_avg_length,
+                                         "kv_norm": kv_norm}},
+            "encoder_cfg": {"feat_chs": list(cfg.encoder.feat_chs)},
+            "matcher": {"num_grid": list(cfg.matcher.num_grid), "radius": list(cfg.matcher.radius),
+                        "displacement_dim": list(cfg.matcher.displacement_dim)},
+            "initial_res": list(cfg.initial_res), "upsample_res": list(cfg.upsample_res)}
+    path.write_text(json.dumps(conf))
+    assert ModelConfig.from_json(path) == cfg.with_kv_norm(kv_norm)
+    return str(path)
+
+
+def test_config_kv_norm_survives_a_pth_head(matchers, tmp_path, monkeypatch):
+    """A config with `kv_norm: true` and a `.pth` head (which says nothing of
+    k/v standardization): `from_pretrained` and `cli.test` keep it on, as
+    the JAX package keeps `GFNET_KV_NORM=1` on, and `match()` equals JAX's
+    under `GFNET_KV_NORM=1` with the same head."""
+    jm, tm, imA, imB, jwarp, _ = matchers
+    pth = tmp_path / "head.pth"
+    torch.save(tm.head.state_dict(), pth)
+    conf = _conf_json(tmp_path / "tiny_kv.json", kv_norm=True)
+    port = GFNetMatcher.from_pretrained(conf, str(pth), device="cpu", dtype=torch.float32,
+                                        vit_state=tm.vit.state_dict())
+    assert port.cfg.dino.decoder_cfg.kv_norm
+
+    # cli.test's config path: the matcher it builds gets the config's flag
+    import gfnet_tpu_torch.matcher.api as api
+    from gfnet_tpu_torch.cli import test as cli_test
+
+    class Built(Exception):
+        pass
+
+    def capture(cfg, **kw):
+        raise Built(cfg)
+
+    monkeypatch.setattr(api, "GFNetMatcher", capture)
+    with pytest.raises(Built) as built:
+        cli_test.main(["--conf_path", conf, "--ckpt_path", str(pth), "--dataset", "synthetic_tiny",
+                       "--dinov2_weights", str(tmp_path / "none.pth"), "--device", "cpu"])
+    assert built.value.args[0].dino.decoder_cfg.kv_norm
+    monkeypatch.undo()
+
+    # JAX with GFNET_KV_NORM=1 and the same head: a copy of the fixture's
+    # matcher is a new static `self`, so its passes trace anew under the variable
+    monkeypatch.setenv("GFNET_S2D", "0")
+    monkeypatch.setenv("GFNET_EXACT_TOPK", "1")
+    monkeypatch.setenv("GFNET_KV_NORM", "1")
+    jm_kv = copy.copy(jm)
+    jm_kv.head_vars = load_head_checkpoint(str(pth), jm.head_vars)
+    want, want_cert = (np.asarray(a) for a in jm_kv.match(imA, imB))
+    monkeypatch.delenv("GFNET_KV_NORM")
+    assert np.abs(want - jwarp).max() > 1e-2  # k/v standardization moves the warp
+    warp, cert = port.match(imA, imB)
+    np.testing.assert_allclose(warp.numpy(), want, atol=2e-4)
+    np.testing.assert_allclose(cert.numpy(), want_cert, atol=2e-4)
+
+
+def test_orbax_head_matches_jax_load_head_checkpoint(matchers, tmp_path):
+    """`load_head(<orbax dir>)` → the port's `match()` equals the JAX
+    matcher with `load_head_checkpoint(<the same dir>)` (tiny, float32)."""
+    import orbax.checkpoint as ocp
+
+    jm, tm, imA, imB, _, _ = matchers
+    tree: dict = {}
+    with np.load(HEAD) as raw:
+        for name in raw.files:
+            d = tree
+            *parents, leaf = name.split("/")
+            for k in parents:
+                d = d.setdefault(k, {})
+            d[leaf] = jnp.asarray(raw[name])
+    path = tmp_path / "tiny_head"
+    ckptr = ocp.StandardCheckpointer()
+    ckptr.save(path, tree)
+    ckptr.wait_until_finished()
+    saved = jm.head_vars  # an argument of the compiled passes: swapping it traces nothing anew
+    try:
+        jm.head_vars = load_head_checkpoint(str(path), jm.head_vars)
+        want, want_cert = (np.asarray(a) for a in jm.match(imA, imB))
+    finally:
+        jm.head_vars = saved
+    head, kv_norm = load_head(str(path))
+    assert kv_norm is None
+    port = GFNetMatcher(tiny_test_config(), device="cpu", dtype=torch.float32,
+                        vit_state=tm.vit.state_dict(), head_state=head)
+    warp, cert = port.match(imA, imB)
+    np.testing.assert_allclose(warp.numpy(), want, atol=2e-4)
+    np.testing.assert_allclose(cert.numpy(), want_cert, atol=2e-4)
