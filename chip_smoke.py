@@ -7,8 +7,7 @@ Run from the repository root, with no arguments:
 
 Phases, one JSON line each:
   1. device: the card's name and power limit (`nvidia-smi`), TF32 switched off
-     for float32 matmuls and convolutions; then `utils/profiling.roofline_report`
-     of `ModelConfig()` at B=1 and B=8 against the card's peaks;
+     for float32 matmuls and convolutions;
   2. build: compile the CUDA kernels from `gfnet_tpu_torch/csrc/`;
   3. K1 (oneshot_attention) against its plain version at every main-path
      attention shape, bf16, with timings (kernel, plain, SDPA), then on slices
@@ -300,13 +299,6 @@ def phase_device(torch) -> dict:
             "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
     emit("device", **info)
-    from gfnet_tpu_torch.config import ModelConfig
-    from gfnet_tpu_torch.utils.profiling import model_op_costs, roofline_report
-
-    cfg = ModelConfig()
-    emit("roofline", config="ModelConfig()", peaks="H100 SXM data sheet (utils/profiling.py)",
-         **{f"batch_{b}": {"report": roofline_report(cfg, b).splitlines(),
-                           "ops": [vars(c) for c in model_op_costs(cfg, b)]} for b in (1, 8)})
     return info
 
 
@@ -329,7 +321,7 @@ def phase_k1(torch, exp_rate: float) -> dict:
     from gfnet_tpu_torch.ops import kernels
     from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, scaled_dot_product_attention,
                                                streamed_attention_plain)
-    from gfnet_tpu_torch.utils.profiling import PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_TF32_FLOPS, bound
+    from gfnet_tpu_torch.utils.profiling import PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_TF32_FLOPS, bound, counters
 
     gen = torch.Generator("cuda").manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -372,11 +364,11 @@ def phase_k1(torch, exp_rate: float) -> dict:
         else:
             q = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype)
             k, v = (torch.randn((b, nk, h, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
-        merges, before = kernels.oneshot_attention.merges, dict(kernels.oneshot_attention.kernels)
+        merges, before = counters().get("k1.merges", 0), kernels.k1_kernel_counts()
         got = kernels.oneshot_attention(q, k, v, scale).float()
-        merged = kernels.oneshot_attention.merges - merges
+        merged = counters().get("k1.merges", 0) - merges
         # the CUDA kernel the library reports it launched for this call
-        route = [name for name, n in kernels.oneshot_attention.kernels.items() if n != before.get(name, 0)]
+        route = [name for name, n in kernels.k1_kernel_counts().items() if n != before.get(name, 0)]
         if len(route) != 1:
             raise AssertionError(f"K1 {(b, n, h, d)}: one call reported the kernels {route}")
         want = scaled_dot_product_attention(q.float(), k.float(), v.float(), scale)
@@ -796,7 +788,7 @@ def phase_flagship(torch, np) -> dict:
     H = m.estimate_homography(a1, b1, key=None)  # PRNGKey(0)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    k1_kernels = dict(kernels.oneshot_attention.kernels)  # K1's calls by the CUDA kernel launched
+    k1_kernels = kernels.k1_kernel_counts()  # K1's calls by the CUDA kernel launched
     peak_single = torch.cuda.max_memory_allocated()
 
     kernels.reset_launch_counts()
@@ -1457,7 +1449,6 @@ def corr_model_flows(torch, run) -> list:
                          "target": list(target.shape), "dtype": str(target.dtype).split(".")[-1],
                          **{k: tiling[k] for k in ("tile", "box", "staged_share")}})
             return real[name](first, target, flow, radius, **kw)
-        launch.launches = 0  # the real launcher counts on the name it is called by
         return launch
 
     try:

@@ -6,7 +6,10 @@ Counterpart of `gfnet_tpu/cli/test.py`, with its flags (ref `test.py:14-18`:
 matcher and of the dataset's pixels (files decode on the host without PIL,
 `data/imageio`) and defaults to `cuda`. Reports auc@{3,5,10,20}, mean ACE
 and runtime (ref `test.py:70-75`) as the same JSON. Without DINOv2 weights the backbone is
-the JAX package's seed-0 random ViT (`utils/jax_init.py`).
+the JAX package's seed-0 random ViT (`utils/jax_init.py`). `--trace` turns on
+the recorder of `utils/profiling.py` for the evaluation and prints, after
+the results, each span's mean host ms, device ms and host syncs a call over
+the calls the recorder keeps (the last 256).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ def main(argv=None):
                              "reference's serial per-pair protocol)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; cuda without a GPU is an error")
+    parser.add_argument("--trace", action="store_true",
+                        help="record the matcher's spans and print their ms and host syncs a call")
     args, _ = parser.parse_known_args(argv)
 
     import torch
@@ -41,6 +46,7 @@ def main(argv=None):
     from gfnet_tpu_torch.data.dataset import HomographyDataset
     from gfnet_tpu_torch.eval.benchmark import HomographyBenchmark
     from gfnet_tpu_torch.matcher.api import GFNetMatcher
+    from gfnet_tpu_torch.utils import profiling
     from gfnet_tpu_torch.utils.convert import load_head, load_vit
 
     if args.tiny:
@@ -73,10 +79,18 @@ def main(argv=None):
         device=args.device,
     )
     bench = HomographyBenchmark(dataset)
-    results = bench.run(
-        matcher, max_pairs=args.max_pairs, verbose=True, batch_size=args.batch
-    )
+    if args.trace:
+        profiling.enable()
+    try:
+        results = bench.run(
+            matcher, max_pairs=args.max_pairs, verbose=True, batch_size=args.batch
+        )
+    finally:
+        if args.trace:
+            profiling.disable()
     print(json.dumps(results, indent=2))
+    if args.trace:
+        print(json.dumps({"spans_per_call": profiling.summarize(profiling.records())}, indent=2))
     return results
 
 

@@ -18,6 +18,12 @@ torchrun's environment or the JAX package's `GFNET_COORDINATOR`,
 `--gpu_batch_size` is then each rank's batch, read from its own share of the
 dataset's files; rank 0 writes the checkpoints and the metrics log, and
 every rank restores.
+
+`--trace` turns on the recorder of `utils/profiling.py`: each logged line
+then also carries, for each `train.*` span, its mean host ms and device ms a
+step since the last log and its `host_syncs` a step (`<span>.host_ms`,
+`<span>.device_ms`, `<span>.host_syncs`). `train.data_wait` is the wait for
+the next batch, the loader's share the step does not hide.
 """
 
 from __future__ import annotations
@@ -30,6 +36,19 @@ import time
 from argparse import ArgumentParser
 from typing import Iterable
 
+from gfnet_tpu_torch.utils import profiling
+
+
+def span_metrics(seen: int) -> tuple[dict, int]:
+    """The `train.*` spans of the requests after request `seen`, a step
+    each: {`<span>.host_ms`, `<span>.device_ms`, `<span>.host_syncs`}, and
+    the last request read."""
+    recs = [r for r in profiling.records() if r["request"] > seen]
+    out = {}
+    for name, s in profiling.summarize(recs, per="train.step", prefix="train.").items():
+        out.update({f"{name}.{k}": v for k, v in s.items() if v is not None})
+    return out, max((r["request"] for r in recs), default=seen)
+
 
 def train_loop(state, step_fn, batches: Iterable[dict], ckpt, total_steps: int, chunk_steps: int,
                global_batch: int, logger=None, log_every: int = 50):
@@ -38,14 +57,22 @@ def train_loop(state, step_fn, batches: Iterable[dict], ckpt, total_steps: int, 
     checkpoint after each and one at the end. Returns the state."""
     batches = iter(batches)
     t_last = time.perf_counter()
+    seen = 0  # the last request whose spans were logged
     while state.step < total_steps:
-        chunk = min(chunk_steps, total_steps - state.step)
-        for batch in itertools.islice(batches, chunk):
+        chunk = itertools.islice(batches, min(chunk_steps, total_steps - state.step))
+        while True:
+            with profiling.span("train.data_wait"):
+                batch = next(chunk, None)
+            if batch is None:
+                break
             state, metrics = step_fn(state, batch)
             if logger is not None and state.step % log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 dt = time.perf_counter() - t_last
                 m["samples_per_s"] = log_every * global_batch / dt
+                if profiling.recording():
+                    spans, seen = span_metrics(seen)
+                    m.update(spans)
                 t_last = time.perf_counter()
                 logger.log(m, step=state.step * global_batch)
         ckpt.save(state)
@@ -83,6 +110,8 @@ def main(argv=None, batches: Iterable[dict] | None = None):
     parser.add_argument("--eval_after", action="store_true",
                         help="run the benchmark on the val set after training")
     parser.add_argument("--eval_max_pairs", type=int, default=None)
+    parser.add_argument("--trace", action="store_true",
+                        help="record the train step's spans and log their ms and host syncs a step")
     args, _ = parser.parse_known_args(argv)
 
     import torch
@@ -148,6 +177,8 @@ def main(argv=None, batches: Iterable[dict] | None = None):
         batches = loader.batches(max(total_steps - state.step, 0))
     logger = MetricLogger(enabled=proc == 0, jsonl_path=os.path.join(args.workspace, "metrics.jsonl"))
     print(f"training {total_steps} steps (global batch {global_batch}), k={k}")
+    if args.trace:
+        profiling.enable()
     try:
         train_loop(state, step_fn, batches, ckpt, total_steps, k, global_batch, logger,
                    args.log_every)
@@ -156,6 +187,8 @@ def main(argv=None, batches: Iterable[dict] | None = None):
         print("interrupted: checkpoint saved")
         sys.exit(0)
     finally:
+        if args.trace:
+            profiling.disable()
         if loader is not None:
             loader.close()
     print("training complete")

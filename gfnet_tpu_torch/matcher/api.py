@@ -27,6 +27,12 @@ pair keys, and the homographies are gathered. A smaller batch runs on every
 rank, with only the coarse correlation split over the ranks. With
 `fsdp_vit=True` each rank also keeps only its slice of the ViT's large
 leaves.
+
+Each layer call is a span of `utils/profiling.py` (recorded while the
+recorder is on or a profiler records): `call` (`estimate_homography_batched`,
+`match`, `sample`), `prep`, `pass1`, `vit`, `head`, `pass2`, `stitch`,
+`draws`, `sample` (`_sample_core`) and `solve`; the head's own are in
+`models/gfnet.py`.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from gfnet_tpu_torch.ops.resize import interpolate
 from gfnet_tpu_torch.parallel.mesh import shard_params
 from gfnet_tpu_torch.utils import jax_init, jax_random
 from gfnet_tpu_torch.utils.convert import jax_head_state, jax_vit_state
+from gfnet_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -145,6 +152,7 @@ class GFNetMatcher:
         return cls(cfg, **kw)
 
     # --------------------------------------------------------------- forward
+    @span("vit")
     def _vit_tokens(self, x: Tensor) -> Tensor:
         """Frozen backbone tokens for stacked views (2B, H, W, 3)."""
         p = self.cfg.dino.patch_size
@@ -161,16 +169,19 @@ class GFNetMatcher:
         tokens = self._vit_tokens(torch.cat([im_A, im_B], dim=0))
         grids = (upsample_grid_schedule(self.cfg.upsample_res, self.cfg.dino.patch_size)
                  if upsample else None)
-        return self.head(im_A, im_B, tokens, symmetric=symmetric, upsample=upsample,
-                         scale_factor=scale_factor, pre_flow=pre_flow,
-                         pre_certainty=pre_certainty, num_grid_override=grids,
-                         corr_mesh=corr_mesh)
+        with span("head"):
+            return self.head(im_A, im_B, tokens, symmetric=symmetric, upsample=upsample,
+                             scale_factor=scale_factor, pre_flow=pre_flow,
+                             pre_certainty=pre_certainty, num_grid_override=grids,
+                             corr_mesh=corr_mesh)
 
+    @span("prep")
     def _prep_image(self, img: Tensor, size, mode: str = "bicubic") -> Tensor:
         """Antialiased resize + imagenet normalize, the reference eval
         transform: bicubic in pass 1, bilinear in pass 2, no clipping."""
         return imagenet_normalize(interpolate(img, size, mode, False, antialias=True))
 
+    @span("pass1")
     def _pass1(self, im_A_raw: Tensor, im_B_raw: Tensor, corr_mesh=None):
         """Initial-resolution pass (ref `network.py:285-338`); `corr_mesh`
         splits the coarse correlation over its ranks (latency mode)."""
@@ -192,6 +203,7 @@ class GFNetMatcher:
         finest = corresps["1"][num_itr[-1]]
         return finest["flow"], finest["certainty"], low_res_certainty
 
+    @span("pass2")
     def _pass2(self, im_A_raw: Tensor, im_B_raw: Tensor, pre_flow: Tensor, pre_cert: Tensor,
                low_res_certainty: Tensor):
         """Upsample-refinement pass + warp stitch (ref `network.py:339-384`)."""
@@ -209,18 +221,19 @@ class GFNetMatcher:
             flow, certainty = last["flow"], last["certainty"]
         else:
             flow, certainty = pre_flow, pre_cert
-        g = flow.shape[1]
-        certainty = torch.sigmoid(certainty - low_res_certainty)[..., 0]
-        grid = normalized_grid(g, g, device=flow.device)[None].expand(flow.shape[0], -1, -1, -1)
-        wrong = (flow.abs() > 1).any(-1)
-        certainty = torch.where(wrong, torch.zeros_like(certainty), certainty)
-        flow = flow.clamp(-1, 1)
-        if sym:
-            b = flow.shape[0] // 2
-            q_warp = torch.cat([grid[:b], flow[:b]], dim=-1)
-            s_warp = torch.cat([flow[b:], grid[:b]], dim=-1)
-            return torch.cat([q_warp, s_warp], dim=2), torch.cat([certainty[:b], certainty[b:]], dim=2)
-        return torch.cat([grid, flow], dim=-1), certainty
+        with span("stitch"):
+            g = flow.shape[1]
+            certainty = torch.sigmoid(certainty - low_res_certainty)[..., 0]
+            grid = normalized_grid(g, g, device=flow.device)[None].expand(flow.shape[0], -1, -1, -1)
+            wrong = (flow.abs() > 1).any(-1)
+            certainty = torch.where(wrong, torch.zeros_like(certainty), certainty)
+            flow = flow.clamp(-1, 1)
+            if sym:
+                b = flow.shape[0] // 2
+                q_warp = torch.cat([grid[:b], flow[:b]], dim=-1)
+                s_warp = torch.cat([flow[b:], grid[:b]], dim=-1)
+                return torch.cat([q_warp, s_warp], dim=2), torch.cat([certainty[:b], certainty[b:]], dim=2)
+            return torch.cat([grid, flow], dim=-1), certainty
 
     def _as_batch(self, im: Tensor) -> Tensor:
         im = torch.as_tensor(im, dtype=torch.float32).to(self.device)
@@ -230,6 +243,7 @@ class GFNetMatcher:
         pre_flow, pre_cert, low = self._pass1(a, b, corr_mesh)
         return self._pass2(a, b, pre_flow, pre_cert, low)
 
+    @span("call")
     @torch.inference_mode()
     def match(self, im_A_raw, im_B_raw) -> tuple[Tensor, Tensor]:
         """im_*_raw: (H, W, 3) or (B, H, W, 3) float in [0, 1] → the dense warp
@@ -252,6 +266,7 @@ class GFNetMatcher:
         n_good = min(4 * num, n)
         return n_good, min(num, n_good)
 
+    @span("sample")
     def _sample_core(self, matches: Tensor, certainty: Tensor, num: int, u_good: Tensor,
                      u_bal: Tensor | None) -> tuple[Tensor, Tensor]:
         """threshold_balanced sampling (ref `network.py:385-414`) with the
@@ -308,6 +323,7 @@ class GFNetMatcher:
         hi_w, lo_w = words[-2 * r * m:].view(2, r, m)
         return u_good, u_bal, jax_random.randint_of(hi_w, lo_w, 0, n_out).view(r, NUM_HYPOTHESES, 4)
 
+    @span("draws")
     def _pair_draws(self, pair_keys, n: int, num: int) -> tuple[Tensor, Tensor | None, Tensor]:
         """Each pair's draws from its key, as the JAX package's
         `_sample_solve_batched_jit` makes them: `k1, k2 = split(key)`,
@@ -315,6 +331,7 @@ class GFNetMatcher:
         k1, k2 = zip(*(jax_init.split(as_key(k)) for k in pair_keys))
         return self._draws(k1, k2, n, num)
 
+    @span("call")
     @torch.inference_mode()
     def sample(self, matches, certainty, num: int = 5000, key=None) -> tuple[Tensor, Tensor]:
         """`num` matches drawn from a pair's warp and certainty, with the
@@ -326,6 +343,7 @@ class GFNetMatcher:
         return self._sample_core(m, c, num, u_good[0], None if u_bal is None else u_bal[0])
 
     # ----------------------------------------------------------------- solve
+    @span("solve")
     def _solve(self, matches: Tensor, hw_a: tuple[int, int], hw_b: tuple[int, int],
                idx: Tensor) -> Tensor:
         """Denormalize sampled matches (..., N, 4) to pixels and solve with
@@ -378,6 +396,7 @@ class GFNetMatcher:
 
         return tuple(rows(x) for x in xs), None, lambda t: self.mesh.all_gather_rows(t)[:n]
 
+    @span("call")
     @torch.inference_mode()
     def estimate_homography_batched(self, im_A_raw, im_B_raw, num_matches: int = 5000,
                                     key=None, pair_keys=None) -> Tensor:

@@ -19,6 +19,9 @@ instead of keeping their activations (`gfnet_tpu/models/gfnet.py:172-183,
 The frozen ViT is not a submodule: the head takes its patch tokens. Module
 names follow the reference state dict (`dino_decoder`, `encoder`,
 `decoder`, `merge_layer`, `conv_refiner.{scale}`).
+Spans (`utils/profiling.py`): `head.decoder` (the cross-view decoder),
+`head.fpn` (the FPN encoder, merge and decoder), `head.corr` (the global
+correlation) and `head.refiner.<scale>` (each refiner call).
 """
 
 from __future__ import annotations
@@ -35,10 +38,12 @@ from gfnet_tpu_torch.models.fpn import FPNDecoder, FPNEncoder, conv_bn_act
 from gfnet_tpu_torch.models.refiner import ConvRefiner
 from gfnet_tpu_torch.ops.correlation import corr_volume_flow, corr_volume_flow_sharded
 from gfnet_tpu_torch.ops.resize import interpolate
+from gfnet_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
 SCALES = ("16", "8", "4", "2", "1")
+REFINER_SPANS = {s: f"head.refiner.{s}" for s in SCALES}
 
 
 class GFNet(nn.Module):
@@ -77,12 +82,14 @@ class GFNet(nn.Module):
         stacked [view A; view B]; vit_tokens (2B, gh*gw, d_vit)."""
         twob, h, w, _ = x.shape
         b = twob // 2
-        vit0, vit1 = self.dino_decoder(vit_tokens[:b], vit_tokens[b:], grid_hw)
-        vit_feat = torch.cat([vit0, vit1], dim=0).float()
-        vit_up = interpolate(vit_feat, (h // 8, w // 8), "bilinear", False)
-        conv01, conv11, conv21, conv31 = self.encoder(x)
-        merged = self.merge_layer(torch.cat([conv31, vit_up.to(conv31.dtype)], dim=-1))
-        feats = self.decoder(conv01, conv11, conv21, conv31 + merged)
+        with span("head.decoder"):
+            vit0, vit1 = self.dino_decoder(vit_tokens[:b], vit_tokens[b:], grid_hw)
+        with span("head.fpn"):
+            vit_feat = torch.cat([vit0, vit1], dim=0).float()
+            vit_up = interpolate(vit_feat, (h // 8, w // 8), "bilinear", False)
+            conv01, conv11, conv21, conv31 = self.encoder(x)
+            merged = self.merge_layer(torch.cat([conv31, vit_up.to(conv31.dtype)], dim=-1))
+            feats = self.decoder(conv01, conv11, conv21, conv31 + merged)
         pyr = dict(zip(SCALES, [vit_feat, *feats]))
         if upsample:
             del pyr["16"]
@@ -131,18 +138,20 @@ class GFNet(nn.Module):
                     flow = interpolate(pre_flow, (g, g), "bilinear", False)
                     certainty = interpolate(pre_certainty, (g, g), "bilinear", False)
                 else:
-                    flow = (corr_volume_flow_sharded(f0, f1, corr_mesh)
-                            if self._use_sharded_corr(corr_mesh, f0.shape) else corr_volume_flow(f0, f1))
+                    with span("head.corr"):
+                        flow = (corr_volume_flow_sharded(f0, f1, corr_mesh)
+                                if self._use_sharded_corr(corr_mesh, f0.shape) else corr_volume_flow(f0, f1))
                     certainty = torch.zeros(flow.shape[:-1] + (1,), dtype=flow.dtype, device=flow.device)
             corresps[scale] = {}
             displacement_pre = torch.zeros_like(flow) + 1e-7
             for itr in range(num_itr[idx]):
                 refiner = self.conv_refiner[scale]
-                if self.training:
-                    delta_flow, delta_cert = checkpoint_module(
-                        refiner, partial(refiner, scale_factor=scale_factor), f0, f1, flow)
-                else:
-                    delta_flow, delta_cert = refiner(f0, f1, flow, scale_factor=scale_factor)
+                with span(REFINER_SPANS[scale]):
+                    if self.training:
+                        delta_flow, delta_cert = checkpoint_module(
+                            refiner, partial(refiner, scale_factor=scale_factor), f0, f1, flow)
+                    else:
+                        delta_flow, delta_cert = refiner(f0, f1, flow, scale_factor=scale_factor)
                 displacement = float(int(scale)) * torch.stack(
                     [delta_flow[..., 0] / (4 * w0), delta_flow[..., 1] / (4 * h0)], dim=-1)
                 if not self.training:

@@ -15,7 +15,9 @@ Each wrapper checks device, dtype, shape and layout, allocates its output
 (and K1 its kv splits' workspace) with `torch.empty`, launches on the
 current stream of the tensors' device (which the library makes current in
 the calling thread: autograd runs backward on threads of its own), raises
-if the launch failed, and adds one to its `launches` counter. Nothing here
+if the launch failed, and counts the launch in the recorder of
+`utils/profiling.py` (`k1.launches`, `k2.launches`, `k3.launches`;
+`launch_counts()` reads them). Nothing here
 falls back to a plain PyTorch version: the callers in `ops/attention.py` and
 `ops/local_correlation.py` take the plain version only for CPU tensors.
 """
@@ -34,6 +36,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from gfnet_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -236,7 +240,7 @@ def oneshot_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     warpgroups), v padded to a multiple of 64 only; float32 runs column
     groups of 256 output columns (v padded to whole groups), each block
     computing the logits over the whole D: `pad_head_dim`, one call,
-    counted as one (`oneshot_attention.kernels` counts the calls by the
+    counted as one (the counter `k1.kernel.<name>` counts the calls by the
     CUDA kernel the library reports it launched). At an instantiated
     D the head and channel dims must be packed (strides D, 1), the batch
     and token strides are free (a slice of a fused qkv projection is read in
@@ -291,18 +295,17 @@ def _attention_launch(q: Tensor, k: Tensor, v: Tensor, scale: float, splits: int
         k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale), int(bf16), splits, kv_split,
         _stream(q.device), ctypes.byref(kernel))
     _check(err, "oneshot_attention")
-    oneshot_attention.launches += 1
-    oneshot_attention.merges += splits > 1
-    name = _K1_NAMES.get(kernel.value) or _K1_NAMES.setdefault(
-        kernel.value, lib.gfnet_oneshot_attention_kernel_name(kernel.value).decode())
-    oneshot_attention.kernels[name] = oneshot_attention.kernels.get(name, 0) + 1
+    profiling.count("k1.launches")
+    if splits > 1:  # the merge kernel ran too
+        profiling.count("k1.merges")
+    counter = _K1_COUNTERS.get(kernel.value) or _K1_COUNTERS.setdefault(
+        kernel.value, K1_KERNEL + lib.gfnet_oneshot_attention_kernel_name(kernel.value).decode())
+    profiling.count(counter)
     return out
 
 
-oneshot_attention.launches = 0
-oneshot_attention.merges = 0  # calls whose kv was split: each launched the merge kernel too
-oneshot_attention.kernels = {}  # calls by the CUDA kernel the library reports it launched, by name
-_K1_NAMES: dict[int, str] = {}  # the library's index of a K1 kernel → its name
+K1_KERNEL = "k1.kernel."  # + the name of the CUDA kernel a K1 call launched: its counter
+_K1_COUNTERS: dict[int, str] = {}  # the library's index of a K1 kernel → its counter
 
 
 # The tiling of K2 and K3 (`csrc/local_corr_window.cuh`): a block of eight
@@ -428,11 +431,8 @@ def local_corr(query: Tensor, target: Tensor, flow: Tensor, radius: int,
         raise ValueError(f"local_corr: radius {radius}")
     out = torch.empty((b, g1, g2, (2 * radius + 1) ** 2), dtype=torch.float32, device=query.device)
     _corr_launch("local_corr", load_library().gfnet_local_corr, query, target, flow, out, radius, schedule, scale)
-    local_corr.launches += 1
+    profiling.count("k2.launches")
     return out
-
-
-local_corr.launches = 0
 
 
 def local_corr_bwd(grad: Tensor, target: Tensor, flow: Tensor, radius: int,
@@ -458,22 +458,24 @@ def local_corr_bwd(grad: Tensor, target: Tensor, flow: Tensor, radius: int,
     dq = torch.empty((b, g1, g2, target.shape[3]), dtype=torch.float32, device=grad.device)
     _corr_launch("local_corr_bwd", load_library().gfnet_local_corr_bwd, grad, target, flow, dq, radius, schedule,
                  scale)
-    local_corr_bwd.launches += 1
+    profiling.count("k3.launches")
     return dq
 
 
-local_corr_bwd.launches = 0
-
-KERNELS = {"oneshot_attention": oneshot_attention, "local_corr": local_corr,
-           "local_corr_bwd": local_corr_bwd}
+COUNTERS = {"oneshot_attention": "k1.launches", "local_corr": "k2.launches", "local_corr_bwd": "k3.launches"}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
-    oneshot_attention.merges = 0
-    oneshot_attention.kernels = {}
+    """Zero the kernels' counters (`k1.*`, `k2.*`, `k3.*`)."""
+    profiling.reset("k1.", "k2.", "k3.")
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Launches of each kernel since `reset_launch_counts()`."""
+    counts = profiling.counters()
+    return {fn: counts.get(counter, 0) for fn, counter in COUNTERS.items()}
+
+
+def k1_kernel_counts() -> dict[str, int]:
+    """K1's calls since `reset_launch_counts()`, by the CUDA kernel each launched."""
+    return {name[len(K1_KERNEL):]: n for name, n in profiling.counters().items() if name.startswith(K1_KERNEL)}

@@ -26,6 +26,10 @@ before it runs and frees them after, and the step is otherwise unchanged.
 Modules are named as the JAX package's top-level parameter groups, so
 `freeze`, `module_clip` and `module_spike_zero` take the same names in both:
 crossview, encoder, fpn_decoder, merge_layer, refiners_16 ... refiners_1.
+
+Spans (`utils/profiling.py`): `train.step` around the step, and in it
+`train.forward` (the ViT, the head and the loss), `train.backward` and
+`train.update` (from the gradients to `state.apply_gradients()`).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from gfnet_tpu_torch.models.common import sync_batch_norms
 from gfnet_tpu_torch.parallel.mesh import shard_params
 from gfnet_tpu_torch.train.loss import RobustLoss
 from gfnet_tpu_torch.train.state import TrainState, global_norm
+from gfnet_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -96,6 +101,7 @@ def make_train_step(
         shard_params(mesh, matcher.vit, fsdp_min_size)
     vit, device = matcher.vit, matcher.device
 
+    @span("train.step")
     def step_fn(state: TrainState, batch: dict[str, Any]) -> tuple[TrainState, dict]:
         head = state.head
         groups = {k: list(m.parameters()) for k, m in head_modules(head).items()}
@@ -104,27 +110,28 @@ def make_train_step(
         unknown = (set(freeze) | set(module_clip or ()) | set(module_spike_zero or ())) - set(groups)
         if unknown:
             raise ValueError(f"freeze/module_clip names not in the head: {sorted(unknown)}")
-        im_a, im_b, H_s2t = (torch.as_tensor(batch[k]).to(device) for k in ("im_A", "im_B", "H_s2t"))
-        # uint8 transport: loaders may ship raw 8-bit HWC images (4x less
-        # host->device traffic); the imagenet normalization happens here
-        if im_a.dtype == torch.uint8:
-            im_a, im_b = (imagenet_normalize(t.float() / 255.0) for t in (im_a, im_b))
-        with torch.no_grad():
-            tokens = vit(torch.cat([im_a, im_b], dim=0))
-
         head.train()
         try:
             head.zero_grad(set_to_none=True)
             with sync_batch_norms(head, mesh):
-                corresps = head(im_a, im_b, tokens, symmetric=symmetric)
-                total, metrics = loss(corresps, H_s2t.float(), tuple(im_a.shape[1:3]),
-                                      tuple(im_b.shape[1:3]), mesh=mesh)
-                total.backward()
+                with span("train.forward"):
+                    im_a, im_b, H_s2t = (torch.as_tensor(batch[k]).to(device) for k in ("im_A", "im_B", "H_s2t"))
+                    # uint8 transport: loaders may ship raw 8-bit HWC images (4x less
+                    # host->device traffic); the imagenet normalization happens here
+                    if im_a.dtype == torch.uint8:
+                        im_a, im_b = (imagenet_normalize(t.float() / 255.0) for t in (im_a, im_b))
+                    with torch.no_grad():
+                        tokens = vit(torch.cat([im_a, im_b], dim=0))
+                    corresps = head(im_a, im_b, tokens, symmetric=symmetric)
+                    total, metrics = loss(corresps, H_s2t.float(), tuple(im_a.shape[1:3]),
+                                          tuple(im_b.shape[1:3]), mesh=mesh)
+                with span("train.backward"):
+                    total.backward()
         finally:
             head.eval()
         metrics = {k: v.detach() for k, v in metrics.items()}
 
-        with torch.no_grad():
+        with torch.no_grad(), span("train.update"):
             for p in head.parameters():  # a leaf the loss did not reach counts as zero
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)

@@ -261,7 +261,6 @@ def k3_faults(caught: list) -> None:
 def tiny_train_faults(caught: list) -> None:
     for fault in (None, k3_centre_dropped, k3_scale_off):
         if fault is not None:
-            fault.launches = 0  # the real launcher counts on the name it is called by
             kernels.local_corr_bwd = fault
         try:
             r = chip_smoke.tiny_train_compare(torch, np)
@@ -281,7 +280,6 @@ def tiny_faults(caught: list) -> None:
     gpu, cpu, a, b = chip_smoke.tiny_setup(torch, np)
     wc, cc = cpu.match(a, b)
     for name, fault in (("oneshot_attention", k1_scale_off), ("local_corr", k2_centre_zeroed)):
-        fault.launches = 0  # the real launcher counts on the name it is called by
         setattr(kernels, name, fault)
         try:
             wg, cg = gpu.match(a, b)
@@ -343,7 +341,6 @@ def accuracy_faults(caught: list) -> None:
         accuracy_report(f"no fault, keys from PRNGKey({seed}) (not JAX's draws)",
                         chip_smoke.accuracy_reading(torch, m, sets, seed), False, [])
     for name, fault in (("local_corr", k2_centre_zeroed), ("oneshot_attention", k1_scale_off)):
-        fault.launches = 0  # the real launcher counts on the name it is called by
         setattr(kernels, name, fault)
         try:
             reading = chip_smoke.accuracy_reading(torch, m, sets)
