@@ -43,6 +43,13 @@ Phases, one JSON line each:
      pass 2, sample + solve) timed alone and profiled once for its device
      time, busy share and top kernels, and how K2 tiles the refiners' own
      flows (share of staged tiles per launch);
+  k4: K4 (kde, the sampler's density) on the flagship's own sampled
+     candidates (8 pairs and 1 pair, 20,000 each) against the plain path:
+     bit for bit (K4 sums in the order of the plain path's reduction; the
+     largest relative difference beside it), two runs bit for bit,
+     the share of cuBLAS's float32 dots (the plain path's) that the kernel's
+     FMA chain repeats bit for bit, the candidates that cross the sampler's
+     `density < 10` cut, and K4's ms beside the plain path's and its bound;
   flagship_f32: the flagship in float32 (the JAX package's
      `GFNetMatcher(cfg, dtype=jnp.float32)`), B = 1, one pair, TF32 off:
      `match()` on the card against the same weights on the CPU, and each
@@ -181,6 +188,8 @@ E2E_ATOL = 1e-3
 # plain version's einsum. Sound runs read at most 4.3e-6; the 1/√C scale off
 # by 1% reads 0.061 and more, the centre tap of the gradient dropped 1.05.
 K3_ATOL = 1e-4
+# the kernels a train step launches (K4 samples matches, which training never does)
+TRAIN_KERNELS = ("oneshot_attention", "local_corr", "local_corr_bwd")
 # One train step of the tiny config, float32, TF32 off, CUDA against CPU:
 # the loss relative to the CPU's (sound runs read 7.1e-8), and each leaf's
 # gradient relative to the largest gradient entry of its top-level module on
@@ -663,7 +672,7 @@ def corr_padded_channels(torch) -> None:
     row["k3_bound_ms"], row["k3_bound_by"] = bound(
         ops, 2 * target.numel() + 4 * (flow.numel() + grad.numel() + first.numel()))
     emit("corr_padded_channels", **row)
-    if launched != {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1}:
+    if launched != {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1, "kde": 0}:
         raise AssertionError(f"padded-channel correlation launches {launched}")
     if not (row["k2_max_abs_err"] <= K2_ATOL and row["k3_max_abs_err"] <= K3_ATOL
             and row["k3_bitwise_repeatable"]):
@@ -779,23 +788,33 @@ def phase_flagship(torch, np) -> dict:
     passes = 2 if cfg.upsample_preds else 1
     want_k1 = passes * (cfg.dino.depth + cfg.dino.decoder_cfg.num_cross_attn)
     want_k2 = sum(r > 0 for r in cfg.matcher.radius) + sum(r > 0 for r in cfg.matcher.radius[1:])
-    want = {"oneshot_attention": want_k1, "local_corr": want_k2, "local_corr_bwd": 0}
+    want = {"oneshot_attention": want_k1, "local_corr": want_k2, "local_corr_bwd": 0, "kde": 1}
 
     m.estimate_homography(a1, b1)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    H = m.estimate_homography(a1, b1, key=None)  # PRNGKey(0)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    k1_kernels = kernels.k1_kernel_counts()  # K1's calls by the CUDA kernel launched
-    peak_single = torch.cuda.max_memory_allocated()
+    candidates, real_kde = [], api.kde
 
-    kernels.reset_launch_counts()
-    Hb = m.estimate_homography_batched(a8, b8, key=None)
-    torch.cuda.synchronize()
-    counts_b = kernels.launch_counts()
-    peak_batched = torch.cuda.max_memory_allocated()
+    def kept_kde(x, *args, **kw):  # the sampled candidates, for the k4 phase (on the host: no device bytes)
+        candidates.append(x.detach().cpu())
+        return real_kde(x, *args, **kw)
+
+    api.kde = kept_kde
+    try:
+        kernels.reset_launch_counts()
+        H = m.estimate_homography(a1, b1, key=None)  # PRNGKey(0)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        k1_kernels = kernels.k1_kernel_counts()  # K1's calls by the CUDA kernel launched
+        peak_single = torch.cuda.max_memory_allocated()
+
+        kernels.reset_launch_counts()
+        Hb = m.estimate_homography_batched(a8, b8, key=None)
+        torch.cuda.synchronize()
+        counts_b = kernels.launch_counts()
+        peak_batched = torch.cuda.max_memory_allocated()
+    finally:
+        api.kde = real_kde
 
     ok = (tuple(H.shape) == (3, 3) and tuple(Hb.shape) == (8, 3, 3)
           and bool(torch.isfinite(H).all()) and bool(torch.isfinite(Hb).all()))
@@ -831,7 +850,54 @@ def phase_flagship(torch, np) -> dict:
               "max_memory_allocated_single": peak_single,
               "max_memory_allocated_batched": peak_batched, "launches": counts, "k1_kernels": k1_kernels}
     emit("flagship", **result)
-    return result, m
+    return result, m, {"batched": candidates[1], "single": candidates[0]}
+
+
+def fma_dots(a, y):
+    """a (B, M, 4) · y (B, N, 4)ᵀ in float32 as K4 forms it: x0·y0, then
+    + x1·y1, + x2·y2, + x3·y3, each a fused multiply-add. Emulated in
+    float64, where a product of two float32 is exact and a sum rounds to
+    float32 as the FMA does but for rare double roundings."""
+    a, y = a.double(), y.double()
+    acc = (a[..., :, None, 0] * y[..., None, :, 0]).float()
+    for k in (1, 2, 3):
+        acc = (a[..., :, None, k] * y[..., None, :, k] + acc.double()).float()
+    return acc
+
+
+def phase_k4(torch, exp_rate: float, candidates: dict) -> dict:
+    """K4 on the flagship's sampled candidates (`phase_flagship`): (8, N, 4)
+    and (1, N, 4), bit for bit against the plain path and itself, its
+    dots against cuBLAS's, timed in turns with the plain path; the bound is
+    B·N² exponentials at `exp_rate`. Returns the batched row."""
+    from gfnet_tpu_torch.ops import kernels
+    from gfnet_tpu_torch.ops.kde import kde_plain
+
+    inv = -1.0 / (2 * 0.1 * 0.1)
+    rows = {}
+    for name in ("batched", "single"):
+        x = candidates[name].float().cuda()
+        x = x.reshape(-1, x.shape[-2], 4).contiguous()
+        b, n, _ = x.shape
+        sq = (x * x).sum(-1)
+        got = kernels.kde(x, sq, inv)
+        want = kde_plain(x, std=0.1)
+        rel = ((got - want).abs() / want.abs()).max().item()
+        cublas = x[:, :256] @ x.mT  # the plain path's dots, 256 rows of each member
+        row = {"shape": [b, n, 4], "bitwise_equal_plain": bool(torch.equal(got, want)), "max_rel_diff": rel,
+               "max_abs_err": (got - want).abs().max().item(),
+               "bitwise_repeatable": bool(torch.equal(got, kernels.kde(x, sq, inv))),
+               "dot_bits_equal_share": (cublas == fma_dots(x[:, :256], x)).double().mean().item(),
+               "cut_crossings": int(((got < 10) != (want < 10)).sum().item()),
+               "density_below_10_share": (want < 10).double().mean().item()}
+        row.update(timed_in_turns(torch, {"kernel": lambda: kernels.kde(x, sq, inv)}, 20))
+        row.update(plain_ms=cuda_ms(torch, lambda: kde_plain(x, std=0.1), 3), library_ms=None,
+                   bound_ms=b * n * n / exp_rate * 1e3, bound_by="exp")
+        emit("k4", **row)
+        if not (row["bitwise_equal_plain"] and row["bitwise_repeatable"]):
+            raise AssertionError(f"K4 at {row['shape']}: {row}")
+        rows[name] = row
+    return rows["batched"]
 
 
 def phase_flagship_f32(torch, np, m) -> dict:
@@ -1415,7 +1481,7 @@ def phase_orbax(torch, np, tmp: Path, data: dict) -> dict:
     if len(ft["losses"]) != ORBAX_FT_STEPS or not ft["first_loss_rel_diff"] <= ORBAX_LOSS_RTOL:
         raise AssertionError(f"orbax: fine-tune losses {ft['losses']} against the .npz start's "
                              f"{ft['first_loss_npz_run']}")
-    if min(ft["launches"].values()) == 0:
+    if min(ft["launches"][k] for k in TRAIN_KERNELS) == 0:
         raise AssertionError(f"orbax: cli.train launched {ft['launches']}")
     planted = ft["planted_no_kv_norm"]["first_loss_rel_diff"]
     if planted is None or not planted > ORBAX_KV_FAULT_FACTOR * ORBAX_LOSS_RTOL:
@@ -1711,7 +1777,7 @@ def tiny_train_compare(torch, np) -> dict:
 def phase_tiny_grads(torch, np) -> None:
     r = tiny_train_compare(torch, np)
     emit("tiny_train_cuda_vs_cpu", **r)
-    if min(r["launches"].values()) == 0 or any(r["launches_cpu"].values()):
+    if min(r["launches"][k] for k in TRAIN_KERNELS) == 0 or any(r["launches_cpu"].values()):
         raise AssertionError(f"tiny train step: launches on CUDA {r['launches']}, on the CPU {r['launches_cpu']}")
     if not (math.isfinite(r["loss_cuda"]) and r["loss_rel_err"] <= TINY_LOSS_RTOL
             and r["grad_max_rel_err"] <= TINY_GRAD_RTOL):
@@ -1748,7 +1814,7 @@ def phase_trainer(torch, np, m) -> dict:
     cross = cfg.dino.decoder_cfg.num_cross_attn
     # the feature extraction and each refiner run twice (recomputed in backward)
     want = {"oneshot_attention": cfg.dino.depth + 2 * cross, "local_corr": 2 * with_grad,
-            "local_corr_bwd": with_grad}
+            "local_corr_bwd": with_grad, "kde": 0}
     before = {k: v.detach().clone() for k, v in m.head.state_dict().items()}
     rng = np.random.default_rng(9)
     log: list = []
@@ -2085,7 +2151,7 @@ def phase_dist(torch, np, m) -> dict:
                     and step["grad_max_rel_err"] <= TINY_GRAD_RTOL):
                 raise AssertionError(f"dist {name} train step: loss rel {step['loss_rel_err']}, grad rel "
                                      f"{step['grad_max_rel_err']} at {step['grad_worst_leaf']}")
-            if min(step["launches"].values()) == 0:
+            if min(step["launches"][k] for k in TRAIN_KERNELS) == 0:
                 raise AssertionError(f"dist {name}: launches {step['launches']}")
         if steps["mesh_fsdp"]["vit_all_gathers_per_step"] == 0 or vit["split_leaves"] == 0:
             raise AssertionError(f"dist: the FSDP step gathered nothing ({vit})")
@@ -2136,7 +2202,8 @@ def main() -> int:
         k1, k1_wide = timed("k1", phase_k1, torch, info["exp_per_s"])
         k2 = timed("k2", phase_k2, torch)
         timed("tiny", phase_tiny, torch, np)
-        flag, matcher = timed("flagship", phase_flagship, torch, np)
+        flag, matcher, candidates = timed("flagship", phase_flagship, torch, np)
+        k4 = timed("k4", phase_k4, torch, info["exp_per_s"], candidates)
         timed("flagship_f32", phase_flagship_f32, torch, np, matcher)
         acc_launches = timed("accuracy", phase_accuracy, torch, matcher)
         with tempfile.TemporaryDirectory() as d:  # the data phase's directories, read again by orbax
@@ -2170,6 +2237,8 @@ def main() -> int:
          "gfnet_tpu/ops/pallas/local_corr.py:219", flag["launches"]),
         ("local_corr_bwd", k3, "gfnet_tpu_torch/csrc/local_corr_bwd.cu",
          "gfnet_tpu/ops/pallas/local_corr.py:219 (_bwd_kernel)", train["launches_per_step"]),
+        ("kde", k4, "gfnet_tpu_torch/csrc/kde.cu", "none (gfnet_tpu/ops/kde.py is left to XLA)",
+         flag["launches"]),
     ):
         shape = row.get("shape") or {k: row[k] for k in ("query", "grad", "target", "radius", "target_dtype")
                                      if k in row}

@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-The sources under `gfnet_tpu_torch/csrc/` (K1 attention, K2 local correlation
-and K3, its gradient in the query) compile at first use into one shared library with a plain C interface, loaded with `ctypes`:
+The sources under `gfnet_tpu_torch/csrc/` (K1 attention, K2 local correlation,
+K3, its gradient in the query, and K4, the sampler's kernel density estimate)
+compile at first use into one shared library with a plain C interface, loaded with `ctypes`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c <src>.cu
     nvcc -shared -o libgfnet_kernels.so *.o
@@ -16,10 +17,11 @@ Each wrapper checks device, dtype, shape and layout, allocates its output
 current stream of the tensors' device (which the library makes current in
 the calling thread: autograd runs backward on threads of its own), raises
 if the launch failed, and counts the launch in the recorder of
-`utils/profiling.py` (`k1.launches`, `k2.launches`, `k3.launches`;
-`launch_counts()` reads them). Nothing here
-falls back to a plain PyTorch version: the callers in `ops/attention.py` and
-`ops/local_correlation.py` take the plain version only for CPU tensors.
+`utils/profiling.py` (`k1.launches`, `k2.launches`, `k3.launches`,
+`k4.launches`; `launch_counts()` reads them). Nothing here
+falls back to a plain PyTorch version: the callers in `ops/attention.py`,
+`ops/local_correlation.py` and `ops/kde.py` take the plain version only for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ Tensor = torch.Tensor
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("oneshot_attention.cu", "local_corr.cu", "local_corr_bwd.cu")
+SOURCES = ("oneshot_attention.cu", "local_corr.cu", "local_corr_bwd.cu", "kde.cu")
 HEADERS = ("local_corr_window.cuh",)  # included by the sources; hashed with them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -109,6 +111,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gfnet_local_corr.restype = i
     lib.gfnet_local_corr_bwd.argtypes = corr
     lib.gfnet_local_corr_bwd.restype = i
+    lib.gfnet_kde.argtypes = [i, p, p, p, i, i, f, p]
+    lib.gfnet_kde.restype = i
 
 
 def load_library() -> ctypes.CDLL:
@@ -462,12 +466,38 @@ def local_corr_bwd(grad: Tensor, target: Tensor, flow: Tensor, radius: int,
     return dq
 
 
-COUNTERS = {"oneshot_attention": "k1.launches", "local_corr": "k2.launches", "local_corr_bwd": "k3.launches"}
+def kde(x: Tensor, sq: Tensor, inv: float) -> Tensor:
+    """K4: density[b, i] = Σ_j exp(inv · max(sq_i + sq_j − 2·x_i·x_j, 0))
+    over x (B, N, 4) and its squared norms sq (B, N), contiguous, 16-byte
+    aligned float32 CUDA tensors → (B, N) float32, in one launch, the row sum
+    in the order of the plain path's `sum(-1)` (`csrc/kde.cu`)."""
+    _require_cuda("kde", x, sq)
+    if x.dtype != torch.float32 or sq.dtype != torch.float32:
+        raise ValueError(f"kde: x and sq must be float32, got {x.dtype}, {sq.dtype}")
+    if x.dim() != 3 or x.shape[2] != 4 or sq.shape != x.shape[:2]:
+        raise ValueError(f"kde: shapes {tuple(x.shape)}, {tuple(sq.shape)}; expected (B, N, 4), (B, N)")
+    if not (x.is_contiguous() and sq.is_contiguous()):
+        raise ValueError("kde: x and sq must be contiguous")
+    if x.data_ptr() % 16 or sq.data_ptr() % 16:
+        raise ValueError("kde: x and sq must be 16-byte aligned")
+    b, n, _ = x.shape
+    if b < 1 or n < 1:
+        raise ValueError(f"kde: empty input {tuple(x.shape)}")
+    out = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    err = load_library().gfnet_kde(x.device.index, x.data_ptr(), sq.data_ptr(), out.data_ptr(), b, n,
+                                   float(inv), _stream(x.device))
+    _check(err, "kde")
+    profiling.count("k4.launches")
+    return out
+
+
+COUNTERS = {"oneshot_attention": "k1.launches", "local_corr": "k2.launches", "local_corr_bwd": "k3.launches",
+            "kde": "k4.launches"}
 
 
 def reset_launch_counts() -> None:
-    """Zero the kernels' counters (`k1.*`, `k2.*`, `k3.*`)."""
-    profiling.reset("k1.", "k2.", "k3.")
+    """Zero the kernels' counters (`k1.*`, `k2.*`, `k3.*`, `k4.*`)."""
+    profiling.reset("k1.", "k2.", "k3.", "k4.")
 
 
 def launch_counts() -> dict[str, int]:

@@ -15,6 +15,7 @@ import torch
 from gfnet_tpu_torch.data import augment
 from gfnet_tpu_torch.eval.flows import kernel_flow
 from gfnet_tpu_torch.ops import kernels
+from gfnet_tpu_torch.ops.kde import kde, kde_plain
 from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, fused_attention,
                                            scaled_dot_product_attention, streamed_attention_plain)
 from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, corr_tile_boxes,
@@ -198,7 +199,7 @@ def test_local_correlation_function_matches_plain_gradient(cuda_device):
         assert tt.grad is None and ff.grad is None
         grads.append(qq.grad)
         launched = {k: v - before[k] for k, v in kernels.launch_counts().items()}
-        want = {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1}
+        want = {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1, "kde": 0}
         assert launched == (want if fn is local_correlation else dict.fromkeys(want, 0))
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
 
@@ -326,6 +327,93 @@ def test_local_correlation_pads_channels_tma_cannot_stage(cuda_device):
         kernels.local_corr(torch.zeros((1, 4, 4, 8), device=cuda_device), shifted, fl, 1)
     with pytest.raises(ValueError, match="16-byte aligned"):
         kernels.local_corr_bwd(torch.zeros((1, 4, 4, 9), device=cuda_device), shifted, fl, 1)
+
+
+# ------------------------------------------------------------- K4, the KDE
+def clustered_points(seed: int, b: int, n: int, device) -> torch.Tensor:
+    """(b, n, 4) points in [-1, 1]: clusters of 1 to 40 points 0.03 apart
+    around uniform centres, so that densities run from 1 to about 30, on both
+    sides of the sampler's `density < 10` cut."""
+    gen = torch.Generator().manual_seed(seed)
+    owner = torch.repeat_interleave(torch.arange(n), torch.randint(1, 41, (n,), generator=gen))[:n]
+    centres = torch.rand((b, n, 4), generator=gen) * 2 - 1
+    return (centres[:, owner] + torch.randn((b, n, 4), generator=gen) * 0.03).clamp(-1, 1).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 37, 4097, 20000])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_kde_matches_plain(cuda_device, b, n):
+    x = clustered_points(b * 100_000 + n, b, n, cuda_device)
+    before = kernels.launch_counts()["kde"]
+    got = kde(x)
+    assert kernels.launch_counts()["kde"] == before + 1
+    want = kde_plain(x)
+    if n > 4096:
+        assert bool((want < 10).any()) and bool((want > 10).any())
+    if n == 20000:  # the sampler's: ATen's order of the plain path's row sum, so bit for bit
+        assert torch.equal(got, want)
+    # the plain path's float32 terms, in another order of the sum. At N = 1 the
+    # density is the point's own term alone, exp(−50·d²) with d² what rounding
+    # leaves of sq + sq − 2·dot, and cuBLAS forms the (B, 1, 4)·(B, 4, 1)
+    # product with another kernel than the GEMM of larger N, whose dot may lie
+    # an ulp off the FMA chain's: 2·50·ulp(sq) of the density (read 1.2e-5).
+    # The tolerance there is two such ulps.
+    sq_max = (x * x).sum(-1).max().item()
+    rtol = 1e-5 if n > 1 else 2 * 2 * 50 * torch.finfo(torch.float32).eps * max(sq_max, 1.0)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_kde_is_bitwise_repeatable(cuda_device, b):
+    x = clustered_points(5, b, 20000, cuda_device)
+    assert torch.equal(kde(x), kde(x))
+
+
+def test_kde_routes_or_refuses_other_inputs(cuda_device):
+    """`kde` hands K4 one contiguous, aligned float32 copy of a strided,
+    misaligned, bf16 or float64 input, and of one member without a batch
+    dim; D = 3 on the card raises, never takes the plain path. K4 itself
+    refuses what it cannot read."""
+    x = clustered_points(3, 2, 3000, cuda_device)
+    strided = torch.cat([x, torch.zeros_like(x)], -1)[..., :4]
+    assert not strided.is_contiguous()
+    misaligned = torch.empty(x.numel() + 1, device=cuda_device)[1:].view(x.shape).copy_(x)
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16
+    for y in (strided, misaligned, x.to(torch.bfloat16), x.double(), x[1]):
+        before = kernels.launch_counts()["kde"]
+        got = kde(y)
+        assert kernels.launch_counts()["kde"] == before + 1 and got.dtype == torch.float32
+        torch.testing.assert_close(got, kde_plain(y), rtol=1e-5, atol=0)
+    before = kernels.launch_counts()["kde"]
+    with pytest.raises(ValueError, match="shapes"):
+        kde(x[..., :3])
+    assert kernels.launch_counts()["kde"] == before
+    sq = (x * x).sum(-1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.kde(strided, (strided * strided).sum(-1), -50.0)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.kde(misaligned, sq, -50.0)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.kde(x.double(), sq.double(), -50.0)
+    with pytest.raises(ValueError, match="shapes"):
+        kernels.kde(x[..., :3].contiguous(), sq, -50.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.kde(x.cpu(), sq.cpu(), -50.0)
+
+
+def test_sample_core_launches_kde_once(cuda_device):
+    from gfnet_tpu_torch.config import tiny_test_config
+    from gfnet_tpu_torch.matcher import GFNetMatcher
+
+    m = GFNetMatcher(tiny_test_config(), device="cuda", dtype=torch.float32)
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    b, n, num = 2, 3000, 200
+    matches = torch.rand((b, n, 4), generator=gen, device=cuda_device) * 2 - 1
+    certainty, u_good = (torch.rand((b, n), generator=gen, device=cuda_device).clamp_min(1e-20) for _ in range(2))
+    u_bal = torch.rand((b, 4 * num), generator=gen, device=cuda_device).clamp_min(1e-20)
+    kernels.reset_launch_counts()
+    got, _ = m._sample_core(matches, certainty, num, u_good, u_bal)
+    assert kernels.launch_counts()["kde"] == 1 and got.shape == (b, num, 4)
 
 
 # --------------------------------------------- the dataset path on the card

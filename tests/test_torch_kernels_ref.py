@@ -1,7 +1,8 @@
 """The plain PyTorch versions of the CUDA kernels (K1, K2 and K3, the local
 correlation's gradient in the query) against the JAX package's Pallas
 kernels, run in interpret mode on the CPU as tests/test_oneshot_attention.py
-and tests/test_pallas.py run them.
+and tests/test_pallas.py run them; K4's plain version (the KDE, whose JAX
+counterpart is left to XLA and tested in tests/test_torch_ops.py) on the CPU.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda_kernels.py.
@@ -25,6 +26,7 @@ from gfnet_tpu_torch.ops.attention import (attention_tf32_plain, column_group_at
                                            entropy_invariant_scale, fused_attention, kv_split_attention_plain,
                                            scaled_dot_product_attention, streamed_attention_plain, tf32_round)
 from gfnet_tpu_torch.eval.flows import FLOW_KINDS, homography_flow, kernel_flow
+from gfnet_tpu_torch.ops.kde import kde, kde_plain
 from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, corr_tile_boxes,
                                                    local_corr_dq_plain, local_corr_dq_tiled_plain,
                                                    local_corr_tiled_plain, local_correlation, pad_channels)
@@ -548,10 +550,42 @@ def test_kernel_flows_stage_as_named(kind):
     (kernels.oneshot_attention, lambda: (torch.zeros(1, 4, 1, 8),) * 3 + (0.5,)),
     (kernels.local_corr, lambda: (torch.zeros(1, 2, 2, 4), torch.zeros(1, 3, 3, 4), torch.zeros(1, 2, 2, 2), 1)),
     (kernels.local_corr_bwd, lambda: (torch.zeros(1, 2, 2, 9), torch.zeros(1, 3, 3, 4), torch.zeros(1, 2, 2, 2), 1)),
+    (kernels.kde, lambda: (torch.zeros(1, 5, 4), torch.zeros(1, 5), -50.0)),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(fn, args):
     with pytest.raises(ValueError, match="CUDA"):
         fn(*args())
+
+
+# ------------------------------------------------------------------ K4, KDE
+@pytest.mark.parametrize("form", ["batched", "unbatched", "two_leading_dims", "d3", "d2", "bf16", "float64",
+                                  "strided"])
+def test_kde_takes_plain_version_on_cpu(monkeypatch, form):
+    def refuse(*args):
+        raise AssertionError("K4 launched for a CPU tensor")
+
+    monkeypatch.setattr(kernels, "kde", refuse)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (2, 3, 60, 4)).astype(np.float32))
+    x = {"batched": x[0], "unbatched": x[0, 0], "two_leading_dims": x, "d3": x[0, ..., :3], "d2": x[0, ..., :2],
+         "bf16": x[0].to(torch.bfloat16), "float64": x[0].double(), "strided": x[0, :, ::2]}[form]
+    before = kernels.launch_counts()
+    got = kde(x)
+    assert got.dtype == torch.float32 and got.shape == x.shape[:-1]
+    assert torch.equal(got, kde_plain(x)) and kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("b,n,block", [(1, 1, 4096), (3, 37, 16), (2, 301, 64), (4, 50, 3)])
+def test_kde_plain_rows_in_blocks_match_pairwise_distances(b, n, block):
+    """Every row once, whatever the block (N not a multiple of it, a block
+    smaller than the batch), against Σ_j exp(−|x_i − x_j|² / (2·0.1²)) in
+    float64: the float32 d² = |x_i|² + |x_j|² − 2·x_i·x_j rounds within
+    ~1e-6, 50 times that in a term's exponent."""
+    x = torch.from_numpy(np.random.default_rng(b * 1000 + n).uniform(-1, 1, (b, n, 4)).astype(np.float32))
+    xd = x.double()
+    want = torch.exp(-((xd[:, :, None] - xd[:, None]) ** 2).sum(-1) / (2 * 0.1 ** 2)).sum(-1)
+    got = kde_plain(x, std=0.1, block=block)
+    assert got.shape == (b, n)
+    torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=0)
 
 
 # ------------------------------------------------------------------- build
