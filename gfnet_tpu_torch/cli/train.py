@@ -36,6 +36,7 @@ import time
 from argparse import ArgumentParser
 from typing import Iterable
 
+from gfnet_tpu_torch.config import TrainConfig
 from gfnet_tpu_torch.utils import profiling
 
 
@@ -95,6 +96,8 @@ def main(argv=None, batches: Iterable[dict] | None = None):
     parser.add_argument("--workspace", type=str, default="workspace")
     parser.add_argument("--total_pairs", type=int, default=2_000_000)
     parser.add_argument("--ckpt_every", type=int, default=25_000)
+    parser.add_argument("--lr_per_sample", type=float, default=TrainConfig.lr_per_sample,
+                        help="the base learning rate a sample (ref train.py:108: 1e-4/8)")
     parser.add_argument("--num_workers", type=int, default=8,
                         help="threads decoding image files ahead of the batch being made")
     parser.add_argument("--multihost", action="store_true",
@@ -116,7 +119,7 @@ def main(argv=None, batches: Iterable[dict] | None = None):
 
     import torch
 
-    from gfnet_tpu_torch.config import ModelConfig, TrainConfig, tiny_test_config
+    from gfnet_tpu_torch.config import ModelConfig, tiny_test_config
     from gfnet_tpu_torch.matcher.api import GFNetMatcher
     from gfnet_tpu_torch.parallel.mesh import init_distributed
     from gfnet_tpu_torch.train.checkpoint import Checkpointer
@@ -153,7 +156,7 @@ def main(argv=None, batches: Iterable[dict] | None = None):
 
     global_batch = args.batch_size * nproc
     tcfg = TrainConfig(total_pairs=args.total_pairs, ckpt_every_pairs=args.ckpt_every,
-                       per_host_batch_size=args.batch_size)
+                       per_host_batch_size=args.batch_size, lr_per_sample=args.lr_per_sample)
     loss = RobustLoss(ce_weight=tcfg.ce_weight, alpha=tcfg.alpha, c=tcfg.c,
                       iteration_base=tcfg.iteration_base,
                       local_largest_scale=tcfg.local_largest_scale,

@@ -47,7 +47,20 @@ class DinoConfig:
     init_values: float = 1.0  # LayerScale
     # "mlp" or "swiglufused" (ref `dinov2.py:84,107-116`)
     ffn_layer: str = "mlp"
+    # DINOv2 with registers (arXiv:2309.16588): learned tokens inserted after
+    # cls once the position embedding is added, dropped from the output
+    num_register_tokens: int = 0
+    # the pos-embed resample: +offset scale-based (0.1, the ViT-L release), or
+    # size-based where the offset is 0, antialiased as the `_reg` releases
+    interpolate_antialias: bool = False
+    interpolate_offset: float = 0.1
     decoder_cfg: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
+
+    def __post_init__(self):
+        # DINOv2 antialiases in both modes; the port's scale-based resample
+        # has no antialiased form, so that pair would silently differ
+        if self.interpolate_antialias and self.interpolate_offset:
+            raise ValueError("interpolate_antialias is implemented for interpolate_offset 0 only")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +127,9 @@ class ModelConfig:
             patch_size=dcfg.get("patch_size", 14),
             pos_embed_size=dcfg.get("pos_embed_size", 37),
             ffn_layer=dcfg.get("ffn_layer", "mlp"),
+            num_register_tokens=dcfg.get("num_register_tokens", 0),
+            interpolate_antialias=dcfg.get("interpolate_antialias", False),
+            interpolate_offset=dcfg.get("interpolate_offset", 0.1),
             decoder_cfg=decoder,
         )
         enc = EncoderConfig(feat_chs=tuple(raw.get("encoder_cfg", {}).get("feat_chs", (64, 32, 16, 8))))

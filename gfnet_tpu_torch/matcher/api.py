@@ -97,6 +97,20 @@ def upsample_grid_schedule(upsample_res: tuple[int, int], patch: int = 14) -> tu
     return (g0, 2 * g0, 4 * g0, 8 * g0)
 
 
+def seeded_vit_state(cfg: ModelConfig, seed: int = 0) -> dict:
+    """The ViT that `GFNetMatcher(cfg, seed=seed)` draws when given none: the
+    JAX package's draw (`utils.convert.jax_vit_state`), and, where the
+    config has register tokens, which the JAX package lacks, those drawn as
+    DINOv2 initialises them (normal, std 1e-6) from
+    `torch.Generator().manual_seed(seed)` on the CPU."""
+    state = jax_vit_state(cfg, seed)
+    r = cfg.dino.num_register_tokens
+    if r:
+        g = torch.Generator().manual_seed(seed)
+        state["register_tokens"] = torch.randn((1, r, cfg.dino.d_model), generator=g) * 1e-6
+    return state
+
+
 def resolve_device(device) -> torch.device:
     """The device to run on; asking for CUDA where there is none raises."""
     dev = torch.device(device)
@@ -113,9 +127,10 @@ class GFNetMatcher:
     `utils.convert`). Either one left out is the one the JAX package's
     `GFNetMatcher(cfg, seed=seed)` draws, repeated in numpy by
     `utils/jax_init.jax_vit_params` / `jax_head_params` (its bits; normals
-    within a few units in the last place). The ViT is stored in `dtype`; the
-    head keeps float32 parameters and computes in `dtype`, as the JAX package
-    does.
+    within a few units in the last place); register tokens, which the JAX
+    package has not, as `seeded_vit_state` draws them. The ViT is stored in
+    `dtype`; the head keeps float32 parameters and computes in `dtype`, as
+    the JAX package does.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda", dtype: torch.dtype = torch.bfloat16,
@@ -124,7 +139,7 @@ class GFNetMatcher:
         self.device = resolve_device(device)
         self.dtype = dtype
         vit = VisionTransformer(cfg.dino, dtype=dtype)
-        vit.load_state_dict(vit_state if vit_state is not None else jax_vit_state(cfg, seed))
+        vit.load_state_dict(vit_state if vit_state is not None else seeded_vit_state(cfg, seed))
         head = GFNet(cfg, dtype=dtype)
         head.load_state_dict(head_state if head_state is not None else jax_head_state(cfg, seed))
         self.mesh = None  # set by shard_for_mesh

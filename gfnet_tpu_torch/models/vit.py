@@ -7,6 +7,17 @@ patch tokens without cls (`x_norm_patchtokens`). Every attention goes
 through `fused_attention` (kernel K1 on CUDA). Module names follow the
 torch DINOv2 state dict, so `gfnet_tpu.utils.convert.convert_dinov2_state_dict`
 reads this module's `state_dict()` as it is.
+
+The `_reg` releases (DINOv2 with registers, arXiv:2309.16588), which the
+JAX package lacks: `num_register_tokens` learned tokens go in after cls
+once the position embedding is added and are dropped with cls from the
+output; their pos-embed resample is size-based and antialiased
+(`interpolate_offset` 0), in float32 and then cast, as DINOv2 does.
+
+Spans (`utils/profiling.py`): `vit.attn` around each block's attention
+(qkv, K1, proj) and `vit.ffn` around its FFN; the norms, LayerScale and
+the residual adds lie outside both. Counter `vit.register_tokens`: the
+register tokens through the ViT, per image and pass.
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ from gfnet_tpu_torch.config import DinoConfig
 from gfnet_tpu_torch.models.common import Conv, Dense, LayerNorm, LayerScale, gelu
 from gfnet_tpu_torch.ops.attention import fused_attention
 from gfnet_tpu_torch.ops.resize import interpolate
+from gfnet_tpu_torch.utils.profiling import count, span
 
 Tensor = torch.Tensor
 
@@ -86,20 +98,36 @@ class Block(nn.Module):
         self.ls2 = LayerScale(dim, init_values)
 
     def forward(self, x: Tensor) -> Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+        h = self.norm1(x)
+        with span("vit.attn"):
+            h = self.attn(h)
+        x = x + self.ls1(h)
+        h = self.norm2(x)
+        with span("vit.ffn"):
+            h = self.mlp(h)
+        return x + self.ls2(h)
 
 
-def interpolate_pos_encoding(pos: Tensor, gh: int, gw: int, base: int) -> Tensor:
-    """Bicubic-resample the patch pos-embed grid with torch's explicit
-    scale-factor mapping and the +0.1 anti-rounding offset
-    (ref `dinov2.py:166-190`). pos: (1, base*base+1, D)."""
+def interpolate_pos_encoding(pos: Tensor, gh: int, gw: int, base: int, offset: float = 0.1,
+                             antialias: bool = False) -> Tensor:
+    """Bicubic-resample the patch pos-embed grid (ref `dinov2.py:166-190`).
+    pos: (1, base*base+1, D). With an `offset`, torch's explicit
+    scale-factor mapping with the anti-rounding offset, in pos's dtype (the
+    JAX package's); with offset 0, DINOv2's size-based resample in float32
+    (`antialias`: PIL's a = -0.5 kernel stretched over the source when it
+    shrinks, as `F.interpolate(..., antialias=True)`), cast back to pos's
+    dtype. DINOv2 hands `F.interpolate` size (gw, gh), which lays a
+    transposed grid over a non-square image; this resamples to (gh, gw)."""
     if gh * gw == base * base and gh == gw:
         return pos
     d = pos.shape[-1]
-    grid = pos[:, 1:].reshape(1, base, base, d)
-    scale = ((gh + 0.1) / base, (gw + 0.1) / base)
-    out = interpolate(grid, (gh, gw), mode="bicubic", align_corners=False, scale=scale)
+    if offset:
+        grid = pos[:, 1:].reshape(1, base, base, d)
+        scale = ((gh + offset) / base, (gw + offset) / base)
+        out = interpolate(grid, (gh, gw), mode="bicubic", align_corners=False, scale=scale)
+    else:
+        grid = pos[:, 1:].float().reshape(1, base, base, d)
+        out = interpolate(grid, (gh, gw), mode="bicubic", antialias=antialias).to(pos.dtype)
     return torch.cat([pos[:, :1], out.reshape(1, gh * gw, d)], dim=1)
 
 
@@ -115,6 +143,8 @@ class VisionTransformer(nn.Module):
         self.patch_embed.proj = Conv(3, d, p, stride=p, padding=0, dtype=dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.pos_embed_size**2 + 1, d))
+        if cfg.num_register_tokens:
+            self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, d))
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.init_values, cfg.ffn_layer, dtype)
             for _ in range(cfg.depth)
@@ -131,7 +161,12 @@ class VisionTransformer(nn.Module):
         gh, gw = h // p, w // p
         tok = self.patch_embed.proj(x).reshape(b, gh * gw, cfg.d_model)
         tok = torch.cat([self.cls_token.to(dt).expand(b, 1, -1), tok], dim=1)
-        tok = tok + interpolate_pos_encoding(self.pos_embed, gh, gw, cfg.pos_embed_size).to(dt)
+        tok = tok + interpolate_pos_encoding(self.pos_embed, gh, gw, cfg.pos_embed_size,
+                                             cfg.interpolate_offset, cfg.interpolate_antialias).to(dt)
+        r = cfg.num_register_tokens
+        if r:
+            tok = torch.cat([tok[:, :1], self.register_tokens.to(dt).expand(b, -1, -1), tok[:, 1:]], dim=1)
+            count("vit.register_tokens", b * r)
         for blk in self.blocks:
             tok = blk(tok)
-        return self.norm(tok)[:, 1:]
+        return self.norm(tok)[:, 1 + r:]

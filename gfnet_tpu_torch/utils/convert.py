@@ -222,7 +222,10 @@ def _torch_state(path: str) -> dict:
 
 def load_vit_pth(path: str) -> dict:
     """The public DINOv2 `.pth` → state dict of the port's `VisionTransformer`
-    (same names; the masked-training `mask_token` is not part of the model)."""
+    (same names; the masked-training `mask_token` is not part of the model).
+    The `_reg` releases' `register_tokens` and the giant's fused SwiGLU
+    `blocks.N.mlp.w12`/`w3` are the port's names too (a config with
+    `num_register_tokens` and `ffn_layer: "swiglufused"` loads them strictly)."""
     return {k: v for k, v in _torch_state(path).items() if k != "mask_token"}
 
 

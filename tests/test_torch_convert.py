@@ -119,6 +119,9 @@ def test_config_copy_reads_reference_json_like_jax(path):
     got = dataclasses.asdict(ModelConfig.from_json(REPO / path))
     want = dataclasses.asdict(JModelConfig.from_json(REPO / path))
     assert got["dino"]["decoder_cfg"].pop("kv_norm") is False
+    # the register ViT's fields, which the JAX package lacks, keep its ViT at their defaults
+    assert [got["dino"].pop(k) for k in ("num_register_tokens", "interpolate_antialias",
+                                         "interpolate_offset")] == [0, False, 0.1]
     assert got == want
     assert tiny_test_config().with_kv_norm(False) == tiny_test_config()
     assert tiny_test_config().with_kv_norm(True).dino.decoder_cfg.kv_norm

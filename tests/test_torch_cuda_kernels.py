@@ -7,6 +7,7 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -483,3 +484,40 @@ def test_val_read_on_the_card_equals_the_cpu(cuda_device, tmp_path):
         np.testing.assert_array_equal(g["H_s2t"], c["H_s2t"])
         for k in ("im_A", "im_B"):
             assert g[k].is_cuda and (g[k].cpu() - c[k]).abs().max() <= 1 / 255
+
+
+def test_a_giant_register_block_matches_the_reference(cuda_device):
+    """One block of DINOv2 ViT-g/14-reg at full width (1536, 24 heads of 64,
+    the fused SwiGLU FFN, N = 1605: 40² patches, cls and 4 registers) in bf16,
+    K1 and all, against the benchmark's plain block in float32 on the same
+    bf16-rounded input and weights. Compared: the block's update (output
+    minus input), by the norm of the difference over the reference's norm.
+    The limit, 2e-2: bf16 keeps 8 bits, a relative rounding of 2^-9 at each
+    of the ~6 roundings in a row (LN out, qkv, P in K1, proj, w12, the gate)
+    gives ~0.5%, so 2% leaves room; the same reference block on fp8 e4m3
+    operands (`numerics.lowered()`, 4 bits) has to read above it."""
+    from gfnet_tpu_torch.models.vit import Block
+    from portbench.reference import numerics
+    from portbench.reference.vit_registers import Block as ReferenceBlock
+    from portbench.reference.vit_registers import ViTConfig
+    from portbench.weights_vitreg import draw_vit
+
+    cfg = ViTConfig(depth=1)
+    drawn = draw_vit(dataclasses.asdict(cfg))
+    state = {k[len("blocks.0."):]: v.to(torch.bfloat16) for k, v in drawn.items() if k.startswith("blocks.0.")}
+    block = Block(1536, 24, 4.0, 1.0, "swiglufused", torch.bfloat16)
+    block.load_state_dict(state)
+    block = block.to(cuda_device, torch.bfloat16).eval()
+    ref = ReferenceBlock(cfg)
+    ref.load_state_dict({k: v.float() for k, v in state.items()})
+    ref = ref.to(cuda_device).eval()
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    x = torch.randn((2, 1605, 1536), generator=gen, device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad(), numerics.exact():
+        got = block(x).float() - x.float()
+        want = ref(x.float()) - x.float()
+        with numerics.lowered():
+            lowered = ref(x.float()) - x.float()
+    err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    err_lowered = float(torch.linalg.vector_norm(lowered - want) / torch.linalg.vector_norm(want))
+    assert torch.isfinite(got).all() and err < 2e-2 < err_lowered, (err, err_lowered)

@@ -7,6 +7,7 @@ package, so on the card:
     python -m pytest --noconftest -m cuda tests/test_torch_tracing.py -q
 """
 
+import dataclasses
 import json
 import warnings
 
@@ -27,7 +28,8 @@ from gfnet_tpu_torch.utils.profiling import count, span
 
 RES = 112
 CALL_SPANS = {"call", "prep", "pass1", "pass2", "vit", "head", "head.decoder", "head.fpn", "head.corr",
-              "stitch", "draws", "sample", "solve"} | {f"head.refiner.{s}" for s in ("16", "8", "4", "2", "1")}
+              "stitch", "draws", "sample", "solve", "vit.attn", "vit.ffn"} | \
+    {f"head.refiner.{s}" for s in ("16", "8", "4", "2", "1")}
 
 
 @pytest.fixture(autouse=True)
@@ -197,6 +199,35 @@ def test_a_matcher_call_records_each_layer_and_the_same_homographies(matcher):
     ids = {r["id"]: r for r in recs}
     assert all(ids[r["parent"]]["name"] == "head" for r in recs if r["name"].startswith("head."))
     assert all(ids[r["parent"]]["name"] == "call" for r in recs if r["name"] in ("draws", "sample", "solve"))
+    depth = matcher.cfg.dino.depth  # each block's attention and FFN once a pass, inside the pass's `vit`
+    assert names.count("vit.attn") == names.count("vit.ffn") == 2 * depth
+    assert all(ids[r["parent"]]["name"] == "vit" for r in recs if r["name"].startswith("vit."))
+    assert "vit.register_tokens" not in profiling.counters()  # tiny_test_config has no registers
+
+
+def test_a_register_vit_spans_each_block_and_counts_its_tokens():
+    """Two passes of a ViT with 4 register tokens over 3 images: each block's
+    `vit.attn` and `vit.ffn` once a pass, inside the pass's span, and
+    `vit.register_tokens` 4 a pass an image (the matcher's own ViT-L-style
+    tiny config counts none: the matcher-call test above)."""
+    from gfnet_tpu_torch.models.vit import VisionTransformer
+
+    dino = dataclasses.replace(tiny_test_config().dino, num_register_tokens=4, interpolate_offset=0.0,
+                               interpolate_antialias=True)
+    vit = VisionTransformer(dino, dtype=torch.float32).eval()
+    x = torch.rand(3, RES, RES, 3, generator=torch.Generator().manual_seed(4))
+    profiling.enable()
+    with torch.no_grad():
+        for _ in range(2):
+            with span("vit"):
+                vit(x)
+    recs = profiling.records()
+    ids = {r["id"]: r for r in recs}
+    for name in ("vit.attn", "vit.ffn"):
+        spans = [r for r in recs if r["name"] == name]
+        assert len(spans) == 2 * dino.depth and all(ids[r["parent"]]["name"] == "vit" for r in spans)
+    assert [r["counters"].get("vit.register_tokens") for r in recs if r["name"] == "vit"] == [4 * 3] * 2
+    assert profiling.counters()["vit.register_tokens"] == 4 * 3 * 2
 
 
 def test_match_and_sample_are_a_call_each(matcher):
