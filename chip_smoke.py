@@ -50,6 +50,13 @@ Phases, one JSON line each:
      the share of cuBLAS's float32 dots (the plain path's) that the kernel's
      FMA chain repeats bit for bit, the candidates that cross the sampler's
      `density < 10` cut, and K4's ms beside the plain path's and its bound;
+  k5: K5 (residual_norm, the ViT block's residual stream) at the rows of a
+     batch call's 560² pass, ViT-L (16·1601 × 1024) and ViT-g-reg (16·1605 ×
+     1536), bf16, in each of its three uses (norm alone, add and norm, add
+     alone) against the plain path: s bit for bit, n within one bf16 ulp
+     (plus float32 rounding of the norm's terms where they cancel) and off
+     on under 1% of elements; K5's ms beside the plain path's and its
+     bound (bytes over 3.35 TB/s);
   flagship_f32: the flagship in float32 (the JAX package's
      `GFNetMatcher(cfg, dtype=jnp.float32)`), B = 1, one pair, TF32 off:
      `match()` on the card against the same weights on the CPU, and each
@@ -672,7 +679,7 @@ def corr_padded_channels(torch) -> None:
     row["k3_bound_ms"], row["k3_bound_by"] = bound(
         ops, 2 * target.numel() + 4 * (flow.numel() + grad.numel() + first.numel()))
     emit("corr_padded_channels", **row)
-    if launched != {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1, "kde": 0}:
+    if launched != {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1, "kde": 0, "residual_norm": 0}:
         raise AssertionError(f"padded-channel correlation launches {launched}")
     if not (row["k2_max_abs_err"] <= K2_ATOL and row["k3_max_abs_err"] <= K3_ATOL
             and row["k3_bitwise_repeatable"]):
@@ -788,7 +795,8 @@ def phase_flagship(torch, np) -> dict:
     passes = 2 if cfg.upsample_preds else 1
     want_k1 = passes * (cfg.dino.depth + cfg.dino.decoder_cfg.num_cross_attn)
     want_k2 = sum(r > 0 for r in cfg.matcher.radius) + sum(r > 0 for r in cfg.matcher.radius[1:])
-    want = {"oneshot_attention": want_k1, "local_corr": want_k2, "local_corr_bwd": 0, "kde": 1}
+    want = {"oneshot_attention": want_k1, "local_corr": want_k2, "local_corr_bwd": 0, "kde": 1,
+            "residual_norm": passes * (3 * cfg.dino.depth + 1)}
 
     m.estimate_homography(a1, b1)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
@@ -898,6 +906,95 @@ def phase_k4(torch, exp_rate: float, candidates: dict) -> dict:
             raise AssertionError(f"K4 at {row['shape']}: {row}")
         rows[name] = row
     return rows["batched"]
+
+
+K5_SHAPES = {"vitl": (16 * 1601, 1024), "vitg": (16 * 1605, 1536)}  # rows of a batch call's 560² pass, D
+K5_USES = {"norm": ("x", "weight", "bias"), "add_norm": ("x", "h", "gamma", "weight", "bias"),
+           "add": ("x", "h", "gamma")}
+K5_FLOPS = {"norm": 7, "add_norm": 9, "add": 2}  # float32 operations an element
+# K5's bf16 n against the plain path's: one bf16 ulp of the value, plus
+# float32 rounding of the norm's terms. The two sum a row's mean and variance
+# in different orders, so their float32 n differ by a few 2^-24 of the terms,
+# weight·rstd·(|s − mean| + max|s|) + |bias|; where those cancel to a value
+# far below them, that is many of the value's own ulps (on an H100: up to 163
+# at ~1e-5, on 6e-5 of elements), and 2^-16 of the terms leaves 256 float32
+# roundings.
+K5_TERMS_REL = 2.0**-16
+K5_DIFFER_SHARE = 0.01  # n off the plain path's at all: a value next to a bf16 rounding boundary
+
+
+def bf16_ordinal(torch, t):
+    """bf16 values as integers in their order, one apart per ulp (±0 both 0)."""
+    bits = t.contiguous().view(torch.int16).int()
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def k5_norm_error(torch, n, want, s, weight, bias, eps: float = 1e-6) -> dict:
+    """How far K5's bf16 n lies from the plain path's `want` over the rows s
+    it normalised: the most ulps apart, the share of elements that differ,
+    and the elements beyond one ulp of `want` plus `K5_TERMS_REL` of the
+    norm's terms (`k5_ok` when none and the share is under `K5_DIFFER_SHARE`)."""
+    sf = s.float()
+    var, mean = torch.var_mean(sf, -1, unbiased=False, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    terms = weight.float().abs() * rstd * ((sf - mean).abs() + sf.abs().amax(-1, keepdim=True)) + bias.float().abs()
+    a = want.abs().contiguous()
+    ulp = (a.view(torch.int16) + 1).view(torch.bfloat16).float() - a.float()
+    over = int(((n.float() - want.float()).abs() > ulp + K5_TERMS_REL * terms).sum())
+    apart = (bf16_ordinal(torch, n) - bf16_ordinal(torch, want)).abs()
+    share = float((apart > 0).double().mean())
+    return {"n_max_ulps": int(apart.max()), "n_differ_share": share, "n_over_tolerance": over,
+            "k5_ok": over == 0 and share < K5_DIFFER_SHARE}
+
+
+def k5_inputs(torch, rows: int, d: int, dtype, device, seed: int = 0) -> dict:
+    """K5's tensors from `seed`: x and h (rows, d), a stream whose offset and
+    spread differ by row, so that each row's mean and variance matter; gamma,
+    weight and bias (d,), weight about 1, bias and gamma about 0."""
+    gen = torch.Generator(device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    x = rnd(rows, d) * (0.5 + rnd(rows, 1).abs()) + rnd(rows, 1)
+    return {"x": x.to(dtype), "h": rnd(rows, d).to(dtype), "gamma": (0.1 * rnd(d)).to(dtype),
+            "weight": (1 + 0.3 * rnd(d)).to(dtype), "bias": (0.2 * rnd(d)).to(dtype)}
+
+
+def phase_k5(torch) -> dict:
+    """K5 at `K5_SHAPES` in bf16, each of `K5_USES`, against the plain path
+    (the card test's gates: s bit for bit, `k5_norm_error`) and timed in turns
+    with it; the bound is the bytes read and written (2 a bf16 element of
+    each tensor in and out) over the memory rate. Returns the add-and-norm
+    row at the ViT-g-reg shape."""
+    from gfnet_tpu_torch.ops import kernels
+    from gfnet_tpu_torch.ops.residual_norm import residual_norm_plain
+    from gfnet_tpu_torch.utils.profiling import PEAK_F32_FLOPS, bound
+
+    rows_out = {}
+    for shape_name, (rows, d) in K5_SHAPES.items():
+        t = k5_inputs(torch, rows, d, torch.bfloat16, "cuda", seed=rows)
+        for use, names in K5_USES.items():
+            kw = {k: t[k] for k in names}
+            with torch.no_grad():
+                s, n = kernels.residual_norm(**kw)
+                want_s, want_n = residual_norm_plain(**kw)
+            row = {"shape": [rows, d], "use": use, "dtype": "bfloat16", "s_bitwise_equal": bool(torch.equal(s, want_s))}
+            if n is not None:
+                row.update(k5_norm_error(torch, n, want_n, want_s, t["weight"], t["bias"]),
+                           max_abs_err=float((n.float() - want_n.float()).abs().max()))
+            else:
+                row["max_abs_err"] = float((s.float() - want_s.float()).abs().max())
+            tensors = len(names) - (1 if "gamma" in names else 0) - (2 if "weight" in names else 0)
+            written = int("h" in names) + int("weight" in names)
+            nbytes = (tensors + written) * rows * d * 2
+            with torch.no_grad():
+                row.update(timed_in_turns(torch, {"kernel": lambda: kernels.residual_norm(**kw),
+                                                  "plain": lambda: residual_norm_plain(**kw)}, 20))
+            row["bound_ms"], row["bound_by"] = bound([(K5_FLOPS[use] * rows * d, PEAK_F32_FLOPS)], nbytes)
+            row.update(bytes=nbytes, library_ms=None, times_bound=row["kernel_ms"] / row["bound_ms"])
+            emit("k5", **row)
+            if not (row["s_bitwise_equal"] and row.get("k5_ok", True)):
+                raise AssertionError(f"K5 at {row['shape']} ({use}): {row}")
+            rows_out[(shape_name, use)] = row
+    return rows_out[("vitg", "add_norm")]
 
 
 def phase_flagship_f32(torch, np, m) -> dict:
@@ -1814,7 +1911,7 @@ def phase_trainer(torch, np, m) -> dict:
     cross = cfg.dino.decoder_cfg.num_cross_attn
     # the feature extraction and each refiner run twice (recomputed in backward)
     want = {"oneshot_attention": cfg.dino.depth + 2 * cross, "local_corr": 2 * with_grad,
-            "local_corr_bwd": with_grad, "kde": 0}
+            "local_corr_bwd": with_grad, "kde": 0, "residual_norm": 3 * cfg.dino.depth + 1}
     before = {k: v.detach().clone() for k, v in m.head.state_dict().items()}
     rng = np.random.default_rng(9)
     log: list = []
@@ -2204,6 +2301,7 @@ def main() -> int:
         timed("tiny", phase_tiny, torch, np)
         flag, matcher, candidates = timed("flagship", phase_flagship, torch, np)
         k4 = timed("k4", phase_k4, torch, info["exp_per_s"], candidates)
+        k5 = timed("k5", phase_k5, torch)
         timed("flagship_f32", phase_flagship_f32, torch, np, matcher)
         acc_launches = timed("accuracy", phase_accuracy, torch, matcher)
         with tempfile.TemporaryDirectory() as d:  # the data phase's directories, read again by orbax
@@ -2239,6 +2337,8 @@ def main() -> int:
          "gfnet_tpu/ops/pallas/local_corr.py:219 (_bwd_kernel)", train["launches_per_step"]),
         ("kde", k4, "gfnet_tpu_torch/csrc/kde.cu", "none (gfnet_tpu/ops/kde.py is left to XLA)",
          flag["launches"]),
+        ("residual_norm", k5, "gfnet_tpu_torch/csrc/residual_norm.cu",
+         "none (gfnet_tpu/models/vit.py's norms, LayerScale and adds are left to XLA)", flag["launches"]),
     ):
         shape = row.get("shape") or {k: row[k] for k in ("query", "grad", "target", "radius", "target_dtype")
                                      if k in row}

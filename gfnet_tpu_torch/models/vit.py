@@ -14,10 +14,15 @@ once the position embedding is added and are dropped with cls from the
 output; their pos-embed resample is size-based and antialiased
 (`interpolate_offset` 0), in float32 and then cast, as DINOv2 does.
 
+The residual stream (the norms, LayerScale and the residual adds) goes
+through `ops/residual_norm.residual_norm` (kernel K5 on CUDA), three calls a
+block and one for the final norm; the `norm1`, `norm2`, `ls1`, `ls2` and
+`norm` modules hold its parameters.
+
 Spans (`utils/profiling.py`): `vit.attn` around each block's attention
-(qkv, K1, proj) and `vit.ffn` around its FFN; the norms, LayerScale and
-the residual adds lie outside both. Counter `vit.register_tokens`: the
-register tokens through the ViT, per image and pass.
+(qkv, K1, proj) and `vit.ffn` around its FFN; the residual stream lies
+outside both. Counter `vit.register_tokens`: the register tokens through
+the ViT, per image and pass.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from gfnet_tpu_torch.config import DinoConfig
 from gfnet_tpu_torch.models.common import Conv, Dense, LayerNorm, LayerScale, gelu
 from gfnet_tpu_torch.ops.attention import fused_attention
 from gfnet_tpu_torch.ops.resize import interpolate
+from gfnet_tpu_torch.ops.residual_norm import residual_norm
 from gfnet_tpu_torch.utils.profiling import count, span
 
 Tensor = torch.Tensor
@@ -98,14 +104,15 @@ class Block(nn.Module):
         self.ls2 = LayerScale(dim, init_values)
 
     def forward(self, x: Tensor) -> Tensor:
-        h = self.norm1(x)
+        n1, n2 = self.norm1, self.norm2
+        _, h = residual_norm(x, weight=n1.weight, bias=n1.bias, eps=n1.eps)
         with span("vit.attn"):
             h = self.attn(h)
-        x = x + self.ls1(h)
-        h = self.norm2(x)
+        x, h = residual_norm(x, h, self.ls1.gamma, n2.weight, n2.bias, n2.eps)
         with span("vit.ffn"):
             h = self.mlp(h)
-        return x + self.ls2(h)
+        x, _ = residual_norm(x, h, self.ls2.gamma)
+        return x
 
 
 def interpolate_pos_encoding(pos: Tensor, gh: int, gw: int, base: int, offset: float = 0.1,
@@ -169,4 +176,5 @@ class VisionTransformer(nn.Module):
             count("vit.register_tokens", b * r)
         for blk in self.blocks:
             tok = blk(tok)
-        return self.norm(tok)[:, 1 + r:]
+        _, out = residual_norm(tok, weight=self.norm.weight, bias=self.norm.bias, eps=self.norm.eps)
+        return out[:, 1 + r:]

@@ -1,1 +1,2 @@
-"""Tensor ops: resize, grid sampling, correlation, KDE, attention, local correlation and the CUDA kernels."""
+"""Tensor ops: resize, grid sampling, correlation, KDE, attention, local correlation,
+the ViT's residual stream and the CUDA kernels."""

@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 The sources under `gfnet_tpu_torch/csrc/` (K1 attention, K2 local correlation,
-K3, its gradient in the query, and K4, the sampler's kernel density estimate)
-compile at first use into one shared library with a plain C interface, loaded with `ctypes`:
+K3, its gradient in the query, K4, the sampler's kernel density estimate, and
+K5, the ViT block's residual stream) compile at first use into one shared
+library with a plain C interface, loaded with `ctypes`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c <src>.cu
     nvcc -shared -o libgfnet_kernels.so *.o
@@ -18,10 +19,10 @@ current stream of the tensors' device (which the library makes current in
 the calling thread: autograd runs backward on threads of its own), raises
 if the launch failed, and counts the launch in the recorder of
 `utils/profiling.py` (`k1.launches`, `k2.launches`, `k3.launches`,
-`k4.launches`; `launch_counts()` reads them). Nothing here
+`k4.launches`, `k5.launches`; `launch_counts()` reads them). Nothing here
 falls back to a plain PyTorch version: the callers in `ops/attention.py`,
-`ops/local_correlation.py` and `ops/kde.py` take the plain version only for
-CPU tensors.
+`ops/local_correlation.py`, `ops/kde.py` and `ops/residual_norm.py` take the
+plain version only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ Tensor = torch.Tensor
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("oneshot_attention.cu", "local_corr.cu", "local_corr_bwd.cu", "kde.cu")
+SOURCES = ("oneshot_attention.cu", "local_corr.cu", "local_corr_bwd.cu", "kde.cu", "residual_norm.cu")
 HEADERS = ("local_corr_window.cuh",)  # included by the sources; hashed with them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -104,7 +105,7 @@ def declare_attention(lib: ctypes.CDLL) -> None:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     declare_attention(lib)
     corr = [i, p, p, p, p] + [i] * 16 + [f, i, p]
     lib.gfnet_local_corr.argtypes = corr
@@ -113,6 +114,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gfnet_local_corr_bwd.restype = i
     lib.gfnet_kde.argtypes = [i, p, p, p, i, i, f, p]
     lib.gfnet_kde.restype = i
+    lib.gfnet_residual_norm.argtypes = [i, p, p, p, p, p, p, p, ll, i, f, i, p]
+    lib.gfnet_residual_norm.restype = i
 
 
 def load_library() -> ctypes.CDLL:
@@ -491,13 +494,57 @@ def kde(x: Tensor, sq: Tensor, inv: float) -> Tensor:
     return out
 
 
+RESIDUAL_NORM_MAX_DIM = 1536  # K5's widest row: six 8-channel chunks a lane of a warp
+
+
+def residual_norm(x: Tensor, h: Tensor | None = None, gamma: Tensor | None = None, weight: Tensor | None = None,
+                  bias: Tensor | None = None, eps: float = 1e-6) -> tuple[Tensor, Tensor | None]:
+    """K5: (s, n) of `ops/residual_norm.residual_norm` in one launch
+    (`csrc/residual_norm.cu`): s = x + h·gamma rounded as the plain path
+    rounds it (x itself where h is None), n = the float32 layer norm of s by
+    weight and bias, cast to the dtype (None where weight is None). x and h
+    (..., D) and gamma, weight, bias (D,) are contiguous, 16-byte aligned CUDA
+    tensors of one dtype, float32 or bf16, D a multiple of 8 up to
+    `RESIDUAL_NORM_MAX_DIM`; none may require grad while grad is on (K5 has
+    no backward). Anything else raises."""
+    given = [t for t in (x, h, gamma, weight, bias) if t is not None]
+    _require_cuda("residual_norm", *given)
+    if (h is None) != (gamma is None) or (weight is None) != (bias is None) or (h is None and weight is None):
+        raise ValueError("residual_norm: give h with gamma, weight with bias, and at least one pair")
+    if x.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != x.dtype for t in given):
+        raise ValueError(f"residual_norm: dtypes {[t.dtype for t in given]}; one of float32 or bf16 for all")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in given):
+        raise ValueError("residual_norm: K5 has no backward; call it under no_grad or on tensors that need no grad")
+    d = x.shape[-1] if x.dim() else 0
+    if d % 8 or not 8 <= d <= RESIDUAL_NORM_MAX_DIM:
+        raise ValueError(f"residual_norm: D = {d}; K5 takes multiples of 8 up to {RESIDUAL_NORM_MAX_DIM}")
+    if (h is not None and h.shape != x.shape) or any(t.shape != (d,) for t in (gamma, weight, bias) if t is not None):
+        raise ValueError(f"residual_norm: shapes {[tuple(t.shape) for t in given]}")
+    if not all(t.is_contiguous() for t in given):
+        raise ValueError("residual_norm: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in given):
+        raise ValueError("residual_norm: tensors must be 16-byte aligned (16-byte loads)")
+    rows = x.numel() // d
+    if rows < 1:
+        raise ValueError(f"residual_norm: empty input {tuple(x.shape)}")
+    s = x if h is None else torch.empty_like(x)
+    n = None if weight is None else torch.empty_like(x)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = load_library().gfnet_residual_norm(
+        x.device.index, x.data_ptr(), ptr(h), ptr(gamma), ptr(weight), ptr(bias), None if h is None else s.data_ptr(),
+        ptr(n), rows, d, float(eps), int(x.dtype == torch.bfloat16), _stream(x.device))
+    _check(err, "residual_norm")
+    profiling.count("k5.launches")
+    return s, n
+
+
 COUNTERS = {"oneshot_attention": "k1.launches", "local_corr": "k2.launches", "local_corr_bwd": "k3.launches",
-            "kde": "k4.launches"}
+            "kde": "k4.launches", "residual_norm": "k5.launches"}
 
 
 def reset_launch_counts() -> None:
-    """Zero the kernels' counters (`k1.*`, `k2.*`, `k3.*`, `k4.*`)."""
-    profiling.reset("k1.", "k2.", "k3.", "k4.")
+    """Zero the kernels' counters (`k1.*`, `k2.*`, `k3.*`, `k4.*`, `k5.*`)."""
+    profiling.reset("k1.", "k2.", "k3.", "k4.", "k5.")
 
 
 def launch_counts() -> dict[str, int]:

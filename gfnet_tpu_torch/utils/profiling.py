@@ -29,7 +29,7 @@ Counters are kept always (`counters()`, an integer add) and, while spans
 record, also charged to the innermost open span. The kernels' launches are
 counters: `k1.launches`, `k1.merges` (K1 calls whose kv range was split, each
 also launching the merge), `k1.kernel.<name>` (K1 calls by the CUDA kernel
-launched), `k2.launches`, `k3.launches`, `k4.launches`. While the outermost span is open on
+launched), `k2.launches`, `k3.launches`, `k4.launches`, `k5.launches`. While the outermost span is open on
 the card, `host_syncs` counts every device-to-host synchronisation, the
 implicit ones of `nonzero`, boolean indexing or `.item()` inside library
 code too: torch's CUDA sync debug mode warns at each, and the recorder

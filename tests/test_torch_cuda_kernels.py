@@ -22,6 +22,7 @@ from gfnet_tpu_torch.ops.attention import (entropy_invariant_scale, fused_attent
 from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, corr_tile_boxes,
                                                    local_corr_dq_plain, local_corr_dq_tiled_plain,
                                                    local_corr_tiled_plain, local_correlation)
+from gfnet_tpu_torch.ops.residual_norm import residual_norm, residual_norm_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -200,7 +201,7 @@ def test_local_correlation_function_matches_plain_gradient(cuda_device):
         assert tt.grad is None and ff.grad is None
         grads.append(qq.grad)
         launched = {k: v - before[k] for k, v in kernels.launch_counts().items()}
-        want = {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1, "kde": 0}
+        want = {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1, "kde": 0, "residual_norm": 0}
         assert launched == (want if fn is local_correlation else dict.fromkeys(want, 0))
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
 
@@ -415,6 +416,87 @@ def test_sample_core_launches_kde_once(cuda_device):
     kernels.reset_launch_counts()
     got, _ = m._sample_core(matches, certainty, num, u_good, u_bal)
     assert kernels.launch_counts()["kde"] == 1 and got.shape == (b, num, 4)
+
+
+# ------------------------------------------- K5, the ViT's residual stream
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("use", ["add", "add_norm", "norm"])
+@pytest.mark.parametrize("rows,d", [(16 * 1029, 1024), (16 * 1605, 1536), (2 * 1029, 1024), (37, 32)])
+def test_residual_norm_matches_plain(cuda_device, rows, d, use, dtype):
+    """K5 against the plain path on the card: s bit for bit; n in bf16 within
+    one ulp everywhere, plus float32 rounding of the norm's terms where they
+    cancel, and off on under 1% of elements (the float32 norm sums in another
+    order, which moves a value across a rounding boundary only where it lay
+    next to one: `chip_smoke.k5_norm_error`), in float32 within its rounding."""
+    import chip_smoke
+
+    t = chip_smoke.k5_inputs(torch, rows, d, dtype, cuda_device)
+    kw = {k: t[k] for k in chip_smoke.K5_USES[use]}
+    before = kernels.launch_counts()["residual_norm"]
+    with torch.no_grad():
+        s, n = residual_norm(**kw)
+        want_s, want_n = residual_norm_plain(**kw)
+    assert kernels.launch_counts()["residual_norm"] == before + 1
+    assert torch.equal(s, want_s) and s.dtype == dtype
+    if use == "add":
+        assert n is None
+        return
+    assert n.dtype == dtype and n.shape == (rows, d)
+    if dtype == torch.float32:
+        torch.testing.assert_close(n, want_n, rtol=1e-5, atol=1e-5)
+        return
+    err = chip_smoke.k5_norm_error(torch, n, want_n, want_s, t["weight"], t["bias"])
+    assert err["k5_ok"], err
+
+
+def test_residual_norm_refuses_what_it_cannot_read(cuda_device):
+    import chip_smoke
+
+    t = chip_smoke.k5_inputs(torch, 64, 1024, torch.bfloat16, cuda_device)
+    x, h, g, w, b = (t[k] for k in ("x", "h", "gamma", "weight", "bias"))
+    strided = torch.empty((64, 2048), dtype=x.dtype, device=cuda_device)[:, :1024].copy_(x)
+    misaligned = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda_device)[1:1 + x.numel()].view(x.shape)
+    for bad, match in ((dict(x=strided), "contiguous"), (dict(h=strided), "contiguous"),
+                       (dict(x=misaligned.copy_(x)), "aligned"), (dict(x=x.float()), "dtypes"),
+                       (dict(x=x.double(), h=h.double(), gamma=g.double(), weight=w.double(), bias=b.double()),
+                        "dtypes"),
+                       (dict(x=x[:, :36].contiguous(), h=h[:, :36].contiguous(), gamma=g[:36].contiguous(),
+                             weight=w[:36].contiguous(), bias=b[:36].contiguous()), "D = 36"),
+                       (dict(x=x.clone().requires_grad_()), "no backward"), (dict(gamma=None), "give h")):
+        args = {**dict(x=x, h=h, gamma=g, weight=w, bias=b), **bad}
+        before = kernels.launch_counts()["residual_norm"]
+        with pytest.raises(ValueError, match=match):
+            kernels.residual_norm(**args)
+        assert kernels.launch_counts()["residual_norm"] == before
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.residual_norm(x.cpu(), weight=w.cpu(), bias=b.cpu())
+
+
+def test_a_vit_forward_runs_every_block_through_k5(cuda_device, monkeypatch):
+    """One ViT-L forward on the card (bf16, default weights): three K5
+    launches a block and one for the final norm, and the tokens within bf16
+    rounding of the same ViT on the plain path."""
+    from gfnet_tpu_torch.config import DinoConfig
+    from gfnet_tpu_torch.models import vit as vit_module
+
+    cfg = DinoConfig()
+    torch.manual_seed(0)
+    vit = vit_module.VisionTransformer(cfg, dtype=torch.bfloat16).to(cuda_device, torch.bfloat16)
+    vit = vit.eval().requires_grad_(False)
+    with torch.no_grad():  # the patch embedding is left uninitialised, the position embedding zero
+        vit.patch_embed.proj.weight.normal_(0.0, 0.02)
+        vit.pos_embed.normal_(0.0, 0.02)
+    img = torch.rand((2, 224, 224, 3), generator=torch.Generator(cuda_device).manual_seed(1), device=cuda_device)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = vit(img).float()
+    assert kernels.launch_counts()["residual_norm"] == 3 * cfg.depth + 1
+    monkeypatch.setattr(vit_module, "residual_norm", residual_norm_plain)
+    with torch.no_grad():
+        want = vit(img).float()
+    assert kernels.launch_counts()["residual_norm"] == 3 * cfg.depth + 1
+    assert torch.isfinite(got).all()
+    assert float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)) < 2e-2
 
 
 # --------------------------------------------- the dataset path on the card

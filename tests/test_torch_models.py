@@ -77,6 +77,43 @@ def test_vit_matches_jax(depth, d, heads, ffn, hw):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("use", ["norm", "add", "add_norm", "block"])
+@pytest.mark.parametrize("d", [32, 48])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, F32])
+def test_residual_stream_is_the_composition_of_layerscale_add_and_layernorm(dtype, d, use):
+    """On the CPU `residual_norm` is `residual_norm_plain`, bit for bit the
+    `LayerScale`, add and `LayerNorm` modules it replaced in the ViT, and a
+    block returns what those modules gave it."""
+    from gfnet_tpu_torch.models.common import LayerNorm, LayerScale
+    from gfnet_tpu_torch.models.vit import Block
+    from gfnet_tpu_torch.ops.residual_norm import residual_norm, residual_norm_plain
+
+    gen = torch.Generator().manual_seed(d)
+    x, h = (torch.randn((2, 5, d), generator=gen).to(dtype) for _ in range(2))
+    if use == "block":
+        blk = Block(d, 2, 4.0, 1.0, "swiglufused" if d == 48 else "mlp", dtype).to(dtype).eval()
+        with torch.no_grad():
+            for p in blk.parameters():
+                p.normal_(0.0, 0.5, generator=gen)
+            a = blk.attn(blk.norm1(x))
+            x1 = x + blk.ls1(a)
+            want = x1 + blk.ls2(blk.mlp(blk.norm2(x1)))
+            assert torch.equal(blk(x), want)
+        return
+    norm, scale = LayerNorm(d, dtype=dtype), LayerScale(d, 0.5)
+    with torch.no_grad():
+        for p in (norm.weight, norm.bias, scale.gamma):
+            p.normal_(1.0, 0.5, generator=gen)
+        s = x if use == "norm" else x + scale(h)
+        want = (s, None if use == "add" else norm(s))
+        kw = dict(weight=norm.weight, bias=norm.bias, eps=norm.eps) if use != "add" else {}
+        args = (x,) if use == "norm" else (x, h, scale.gamma)
+        for fn in (residual_norm, residual_norm_plain):
+            got = fn(*args, **kw)
+            assert torch.equal(got[0], want[0]) and got[0].dtype == dtype
+            assert (got[1] is None) if want[1] is None else (torch.equal(got[1], want[1]) and got[1].dtype == dtype)
+
+
 @pytest.mark.parametrize("post_norm,pre_norm_query,kv_norm,ffn,attn", [
     (False, True, False, "ffn", "FLASH2"),
     (False, True, True, "ffn", "FLASH2"),

@@ -158,12 +158,15 @@ def test_the_profiler_turns_the_recorder_on_and_sees_nested_ranges(tmp_path):
 
 
 def test_reset_with_prefixes_zeroes_only_those_counters():
-    for name in ("k1.launches", "k2.launches", "k3.launches", "k4.launches", "k1.kernel.x", "host_syncs"):
+    for name in ("k1.launches", "k2.launches", "k3.launches", "k4.launches", "k5.launches", "k1.kernel.x",
+                 "host_syncs"):
         count(name)
-    assert kernels.launch_counts() == {"oneshot_attention": 1, "local_corr": 1, "local_corr_bwd": 1, "kde": 1}
+    assert kernels.launch_counts() == {"oneshot_attention": 1, "local_corr": 1, "local_corr_bwd": 1, "kde": 1,
+                                       "residual_norm": 1}
     assert kernels.k1_kernel_counts() == {"x": 1}
     kernels.reset_launch_counts()
-    assert kernels.launch_counts() == {"oneshot_attention": 0, "local_corr": 0, "local_corr_bwd": 0, "kde": 0}
+    assert kernels.launch_counts() == {"oneshot_attention": 0, "local_corr": 0, "local_corr_bwd": 0, "kde": 0,
+                                       "residual_norm": 0}
     assert profiling.counters() == {"host_syncs": 1}
 
 
