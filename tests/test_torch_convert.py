@@ -24,6 +24,7 @@ from gfnet_tpu_torch.models.gfnet import GFNet
 from gfnet_tpu_torch.models.vit import VisionTransformer
 from gfnet_tpu_torch.ops import kernels
 from gfnet_tpu_torch.utils.convert import flax_to_torch_head, flax_to_torch_vit, load_head_npz
+from torch_cpu import child_env, one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 HEADS = {"tiny": ("workspace/trained_head_tiny.npz", None),  # no flag in the file: None
@@ -147,9 +148,8 @@ def test_package_imports_neither_jax_nor_gfnet_tpu():
         "assert not bad, bad\n"
         "print(len([k for k in sys.modules if k.startswith('gfnet_tpu_torch.')]))\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
-                         text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=child_env(), capture_output=True,
+                         text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
 
@@ -169,6 +169,6 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
     lone = tmp_path / "chip_smoke.py"
     lone.write_text((REPO / "chip_smoke.py").read_text())
     for cwd, script in ((REPO, REPO / "chip_smoke.py"), (tmp_path, lone)):
-        out = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
-                             text=True, timeout=120)
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=child_env(), capture_output=True,
+                             text=True, timeout=60)
         assert out.returncode != 0 and '"ok"' not in out.stdout

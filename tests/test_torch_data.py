@@ -40,6 +40,7 @@ from gfnet_tpu_torch.data import augment  # noqa: E402
 from gfnet_tpu_torch.data.dataset import BatchLoader, HomographyDataset  # noqa: E402
 from gfnet_tpu_torch.data.homography_synth import random_homography_pair  # noqa: E402
 from gfnet_tpu_torch.data.imageio import read_image  # noqa: E402
+from torch_cpu import child_env, one_thread  # noqa: E402, F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_HEAD = os.path.join(REPO, "workspace", "trained_head_tiny.npz")
@@ -373,9 +374,8 @@ def test_both_clis_run_over_directories_with_pil_and_cv2_blocked(tmp_path):
     `test_dataset_items_equal_the_jax_package`), in a
     process where PIL and cv2 cannot be imported; no port module on the
     way imports PIL, cv2, JAX or the JAX package."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, str(tmp_path), TINY_HEAD], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=600)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, str(tmp_path), TINY_HEAD], cwd=REPO, env=child_env(),
+                         capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr[-3000:]
     line = next(ln for ln in out.stdout.splitlines() if ln.startswith("RESULT "))
     result = json.loads(line[len("RESULT "):])

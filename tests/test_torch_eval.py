@@ -30,6 +30,7 @@ from gfnet_tpu_torch.matcher import GFNetMatcher  # noqa: E402
 from gfnet_tpu_torch.models.gfnet import GFNet  # noqa: E402
 from gfnet_tpu_torch.models.vit import VisionTransformer  # noqa: E402
 from gfnet_tpu_torch.utils.convert import jax_head_state, load_head_npz  # noqa: E402
+from torch_cpu import child_env, one_thread  # noqa: E402, F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_HEAD = os.path.join(REPO, "workspace", "trained_head_tiny.npz")
@@ -360,7 +361,6 @@ def test_what_the_gpu_smoke_script_runs_needs_neither_cv2_nor_pil(tmp_path):
         "             if v is not None and k.split('.')[0] in ('cv2', 'PIL', 'jax', 'flax', 'gfnet_tpu'))\n"
         "assert not bad, bad\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=env, capture_output=True,
-                         text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=child_env(), capture_output=True,
+                         text=True, timeout=60)
     assert out.returncode == 0, out.stderr

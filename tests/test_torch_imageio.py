@@ -21,6 +21,7 @@ import pytest
 from PIL import Image
 
 from gfnet_tpu_torch.data import imageio
+from torch_cpu import one_thread  # noqa: F401
 
 FIXTURES = Path(__file__).resolve().parent / "data" / "images"
 NAMES = sorted(p.name for p in FIXTURES.iterdir() if p.suffix in (".jpg", ".png"))

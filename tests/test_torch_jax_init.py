@@ -29,6 +29,7 @@ from gfnet_tpu_torch.utils import jax_init as ji
 from gfnet_tpu_torch.utils import jax_random as jr
 from gfnet_tpu_torch.utils.convert import flax_to_torch_head as convert_head
 from gfnet_tpu_torch.utils.convert import flax_to_torch_vit
+from torch_cpu import one_thread  # noqa: F401
 
 
 def ulps(a, b) -> np.ndarray:

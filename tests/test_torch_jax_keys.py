@@ -37,6 +37,7 @@ from gfnet_tpu_torch.eval.synthetic import benchmark_mace, eval_pairs
 from gfnet_tpu_torch.matcher import GFNetMatcher
 from gfnet_tpu_torch.matcher.api import topk_indices
 from gfnet_tpu_torch.utils.convert import load_head_npz
+from torch_cpu import one_thread  # noqa: F401
 
 HEAD = "workspace/trained_head_tiny.npz"
 RES = 112

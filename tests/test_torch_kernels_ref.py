@@ -30,6 +30,7 @@ from gfnet_tpu_torch.ops.kde import kde, kde_plain
 from gfnet_tpu_torch.ops.local_correlation import (_local_correlation_patch, corr_tile_boxes,
                                                    local_corr_dq_plain, local_corr_dq_tiled_plain,
                                                    local_corr_tiled_plain, local_correlation, pad_channels)
+from torch_cpu import one_thread  # noqa: F401
 
 
 def T(a, dtype=torch.float32):

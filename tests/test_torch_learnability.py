@@ -12,6 +12,7 @@ on the CPU, so `slow`.
 import pytest
 
 from gfnet_tpu_torch.eval.learnability import run
+from torch_cpu import one_thread  # noqa: F401
 
 
 @pytest.mark.slow

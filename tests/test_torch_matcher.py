@@ -25,6 +25,7 @@ from gfnet_tpu_torch.config import ModelConfig, tiny_test_config
 from gfnet_tpu_torch.core.homography import corner_error
 from gfnet_tpu_torch.matcher import GFNetMatcher
 from gfnet_tpu_torch.utils.convert import flax_to_torch_vit, load_head, load_head_npz
+from torch_cpu import one_thread  # noqa: F401
 
 HEAD = "workspace/trained_head_tiny.npz"
 

@@ -29,6 +29,7 @@ from gfnet_tpu_torch.models.gfnet import GFNet
 from gfnet_tpu_torch.models.refiner import ConvRefiner
 from gfnet_tpu_torch.models.vit import VisionTransformer
 from gfnet_tpu_torch.utils import convert
+from torch_cpu import one_thread  # noqa: F401
 
 F32 = torch.float32
 

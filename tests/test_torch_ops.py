@@ -26,6 +26,7 @@ from gfnet_tpu_torch.ops import local_correlation as tlc
 from gfnet_tpu_torch.ops.kde import kde as torch_kde
 from gfnet_tpu_torch.ops import resize as tres
 from gfnet_tpu_torch.ops import sampler as tsamp
+from torch_cpu import one_thread  # noqa: F401
 
 # the module, which `gfnet_tpu.ops` shadows with its function of the same name
 jlc = importlib.import_module("gfnet_tpu.ops.local_correlation")

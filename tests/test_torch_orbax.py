@@ -36,6 +36,7 @@ from gfnet_tpu_torch.utils import orbax
 from gfnet_tpu_torch.utils.convert import (flax_to_torch_head, flax_to_torch_head_moments, load_head,
                                            load_head_npz)
 from gfnet_tpu_torch.utils.jax_init import jax_head_params
+from torch_cpu import one_thread  # noqa: F401
 
 zstandard = pytest.importorskip("zstandard")
 ocp = pytest.importorskip("orbax.checkpoint")

@@ -1,5 +1,5 @@
 """The multi-device path (`gfnet_tpu_torch/parallel/`) on the CPU: two gloo
-ranks started by `torch.multiprocessing.spawn` with a `file://` rendezvous,
+ranks started by `torch_cpu.spawn_ranks` with a `file://` rendezvous,
 at `tiny_test_config()` in float32, every package's weights from `seed=0`.
 
 One spawn runs every two-rank case and saves what each rank saw; the tests
@@ -30,8 +30,10 @@ import pytest
 import torch
 
 from gfnet_tpu_torch.config import TrainConfig, tiny_test_config
+from torch_cpu import one_thread, spawn_ranks  # noqa: F401
 
 RES, BATCH = 112, 8
+SPAWN_S = 150  # about three times the spawn's 47.5 s in the suite's six-worker run on 8 CPUs
 
 
 # ------------------------------------------------------------- shared inputs
@@ -117,7 +119,6 @@ def port_step(mesh, batch, m=None, **step_kw):
 def _ranks(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
     """Every two-rank case on this rank; results to `out_dir/rank{r}.pt`."""
     os.environ["GFNET_GRAD_BREAKDOWN"] = "1"
-    torch.set_num_threads(2)
     import gfnet_tpu_torch.models.gfnet as gfnet_module
     from gfnet_tpu_torch.cli import train as cli_train
     from gfnet_tpu_torch.matcher import GFNetMatcher
@@ -193,7 +194,7 @@ def _ranks(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
 def two_ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("ranks")
     rendezvous = f"file://{out / 'rendezvous'}"
-    torch.multiprocessing.spawn(_ranks, args=(2, rendezvous, str(out)), nprocs=2, join=True)
+    spawn_ranks(_ranks, (2, rendezvous, str(out)), nprocs=2, seconds=SPAWN_S)
     return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(2)]
 
 

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from gfnet_tpu_torch.utils import profiling
+from torch_cpu import one_thread  # noqa: F401
 
 
 def test_bound_takes_the_larger_term():

@@ -25,6 +25,7 @@ from gfnet_tpu_torch.train.state import create_train_state
 from gfnet_tpu_torch.train.step import make_train_step
 from gfnet_tpu_torch.utils import profiling
 from gfnet_tpu_torch.utils.profiling import count, span
+from torch_cpu import one_thread  # noqa: F401
 
 RES = 112
 CALL_SPANS = {"call", "prep", "pass1", "pass2", "vit", "head", "head.decoder", "head.fpn", "head.corr",

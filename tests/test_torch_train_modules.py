@@ -35,6 +35,7 @@ from gfnet_tpu_torch.train.loss import RobustLoss, gt_warp_from_homography
 from gfnet_tpu_torch.train.state import TrainState, create_train_state, make_lr_schedule
 from gfnet_tpu_torch.utils.convert import jax_head_state
 from gfnet_tpu_torch.utils.logging import MetricLogger
+from torch_cpu import one_thread  # noqa: F401
 
 
 def T(a):

@@ -28,6 +28,7 @@ from gfnet_tpu_torch.train.loss import RobustLoss
 from gfnet_tpu_torch.train.state import create_train_state
 from gfnet_tpu_torch.train.step import head_modules, make_train_step
 from gfnet_tpu_torch.utils import convert
+from torch_cpu import one_thread  # noqa: F401
 
 RES, BATCH = 112, 2
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)

@@ -25,6 +25,7 @@ from portbench.reference.matcher_registers import RegisterReference
 from portbench.reference.vit_registers import ViTConfig
 from portbench.reference.vit_registers import VisionTransformer as ReferenceViT
 from portbench.weights_vitreg import draw_vit
+from torch_cpu import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 DINO = dict(d_model=48, depth=2, num_heads=3, patch_size=14, pos_embed_size=8, mlp_ratio=4.0, init_values=1.0,
@@ -48,17 +49,6 @@ def vit_state(seed: int = 0) -> dict:
         if k in ("cls_token", "register_tokens", "pos_embed") or k.endswith(("gamma", "norm1.weight", "norm.bias")):
             sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.5 + (k.endswith("weight") or k.endswith("gamma"))
     return sd
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the test suite runs several workers on the
-    machine's cores, where torch's thread pool in each slows these CPU
-    matcher calls about a hundredfold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
