@@ -57,6 +57,18 @@ Phases, one JSON line each:
      (plus float32 rounding of the norm's terms where they cancel) and off
      on under 1% of elements; K5's ms beside the plain path's and its
      bound (bytes over 3.35 TB/s);
+  k6: K6 (refine_block, the refine block's depthwise 5x5 conv, BatchNorm and
+     ReLU) at the nine (B', G, C) of a basic batch call's refiners (B' = 16;
+     pass 1 G 32/32/64/128/256, C 417/361/177/73/24; pass 2 G 40/80/160/320)
+     against the plain chain (`k6_error`: at most 1% of elements off, each
+     within |mul|·(ulp(s) + 2^-16 of the taps' terms) + ulp(out); NaN and inf
+     where the plain path has them), two runs bit for bit; K6's ms beside the
+     plain chain's and its bound (4 bytes an element over 3.35 TB/s), and
+     the total of a call (nine blocks a refiner call); untimed, the same
+     gates at the nine shapes of a single pair's call (B' = 2, the serve
+     cell's and the flagship's tiles), and in float32 (the float32 model's
+     path: within |mul|·2^-16 of the taps' terms plus float32 rounding of
+     the BatchNorm's terms) at B' = 2;
   flagship_f32: the flagship in float32 (the JAX package's
      `GFNetMatcher(cfg, dtype=jnp.float32)`), B = 1, one pair, TF32 off:
      `match()` on the card against the same weights on the CPU, and each
@@ -679,7 +691,8 @@ def corr_padded_channels(torch) -> None:
     row["k3_bound_ms"], row["k3_bound_by"] = bound(
         ops, 2 * target.numel() + 4 * (flow.numel() + grad.numel() + first.numel()))
     emit("corr_padded_channels", **row)
-    if launched != {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1, "kde": 0, "residual_norm": 0}:
+    if launched != {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1, "kde": 0, "residual_norm": 0,
+                    "refine_block": 0}:
         raise AssertionError(f"padded-channel correlation launches {launched}")
     if not (row["k2_max_abs_err"] <= K2_ATOL and row["k3_max_abs_err"] <= K3_ATOL
             and row["k3_bitwise_repeatable"]):
@@ -755,7 +768,8 @@ def phase_tiny(torch, np) -> None:
     cerr = (cg.cpu() - cc).abs().max().item()
     emit("tiny_cuda_vs_cpu", warp_max_abs_err=werr, certainty_max_abs_err=cerr, atol=E2E_ATOL,
          launches=counts, warp_shape=list(wg.shape))
-    if counts["oneshot_attention"] == 0 or counts["local_corr"] == 0 or counts["local_corr_bwd"] != 0:
+    if (counts["oneshot_attention"] == 0 or counts["local_corr"] == 0 or counts["local_corr_bwd"] != 0
+            or counts["refine_block"] != k6_launches_a_match(gpu.cfg)):
         raise AssertionError(f"tiny inference path on CUDA: launches {counts}")
     if not (werr <= E2E_ATOL and cerr <= E2E_ATOL):
         raise AssertionError(f"tiny path CUDA vs CPU: warp {werr}, certainty {cerr} > {E2E_ATOL}")
@@ -796,7 +810,7 @@ def phase_flagship(torch, np) -> dict:
     want_k1 = passes * (cfg.dino.depth + cfg.dino.decoder_cfg.num_cross_attn)
     want_k2 = sum(r > 0 for r in cfg.matcher.radius) + sum(r > 0 for r in cfg.matcher.radius[1:])
     want = {"oneshot_attention": want_k1, "local_corr": want_k2, "local_corr_bwd": 0, "kde": 1,
-            "residual_norm": passes * (3 * cfg.dino.depth + 1)}
+            "residual_norm": passes * (3 * cfg.dino.depth + 1), "refine_block": k6_launches_a_match(cfg)}
 
     m.estimate_homography(a1, b1)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
@@ -997,6 +1011,180 @@ def phase_k5(torch) -> dict:
     return rows_out[("vitg", "add_norm")]
 
 
+# K6: (B', G, C) of the refine blocks of a basic batch call, pass 1 at 448², pass 2 at 560²
+K6_SHAPES = ((16, 32, 417), (16, 32, 361), (16, 64, 177), (16, 128, 73), (16, 256, 24),
+             (16, 40, 361), (16, 80, 177), (16, 160, 73), (16, 320, 24))
+K6_SINGLE = tuple((2, g, c) for _, g, c in K6_SHAPES)  # a single pair's call (the serve cell, the flagship)
+K6_BLOCKS = 9  # refine blocks a refiner call: block1 and eight hidden
+K6_FLOPS = 2 * 25 + 5  # float32 operations an element: the taps' FMAs, the bias, the BatchNorm, the ReLU
+# K6's output against the plain chain's. The two sum the 25 taps in other
+# orders, so their float32 sums differ by a few 2^-24 of the terms Σ|x·w|;
+# that moves s by one bf16 ulp where the sum lay next to a rounding boundary,
+# and by more only where the taps cancel to far below their terms. Each
+# element may lie |mul|·(ulp(s) + K6_TERMS_REL·terms) + ulp(out) off (25
+# terms summed in two orders differ by at most 50·2^-24 ≈ 2^-18.4 of them);
+# a tap dropped or misplaced moves an output by about terms / 25.
+K6_TERMS_REL = 2.0**-16
+K6_DIFFER_SHARE = 0.01  # bf16 outputs off the plain path's at all
+# In float32 nothing rounds to bf16: K6 and the plain chain differ by the
+# taps' order (K6_TERMS_REL of the terms, through |mul|) and by where each
+# of the BatchNorm's three float32 roundings falls, at most 2^-24 of the
+# magnitudes it rounds (|s| + |mean| through |mul|, and |beta|) per side and
+# operation; K6_F32_ROUND allows 16 of them.
+K6_F32_ROUND = 2.0**-20
+
+
+def k6_launches_a_match(cfg) -> int:
+    """K6 launches a `match()` of a model of `cfg` on the card: nine a refiner
+    call, each scale's refiner `num_itr` times a pass, pass 2 on the finer
+    four scales."""
+    itr = cfg.matcher.num_itr
+    return K6_BLOCKS * (sum(itr) + (sum(itr[1:]) if cfg.upsample_preds else 0))
+
+
+def k6_block(torch, c: int, device, seed: int = 0, dtype=None):
+    """A refine block of width c (`models/refiner.RefineBlock`, computing in
+    `dtype`, bf16 unless given; eval, no grad) with its weights and running
+    statistics drawn from `seed`: taps of about 0.2, so that s is about x's
+    size, a running variance in [0.5, 1.5), BatchNorm weights about 1."""
+    from gfnet_tpu_torch.models.refiner import RefineBlock
+
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen)
+    blk = RefineBlock(c, 5, dtype or torch.bfloat16)
+    with torch.no_grad():
+        blk[0].weight.copy_(0.2 * rnd(c, 1, 5, 5))
+        blk[0].bias.copy_(0.1 * rnd(c))
+        blk[1].weight.copy_(1 + 0.2 * rnd(c))
+        blk[1].bias.copy_(0.2 * rnd(c))
+        blk[1].running_mean.copy_(0.3 * rnd(c))
+        blk[1].running_var.copy_(0.5 + torch.rand(c, generator=gen))
+        blk[3].weight.copy_(rnd(c, c, 1, 1) / c**0.5)
+    return blk.to(device).eval().requires_grad_(False)
+
+
+def k6_input(torch, b: int, h: int, w: int, c: int, device, seed: int = 0, dtype=None):
+    """x (b, h, w, c) in `dtype` (bf16 unless given) from `seed`: unit
+    normal, offset and spread by channel."""
+    gen = torch.Generator(device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    return (rnd(b, h, w, c) * (0.5 + rnd(c).abs()) + 0.5 * rnd(c)).to(dtype or torch.bfloat16)
+
+
+def k6_plain(torch, blk, x) -> tuple:
+    """The plain chain's s (the depthwise conv's output in the block's
+    dtype), mul (the BatchNorm's weight·rsqrt(var + eps)), output (after
+    BatchNorm and ReLU) and the taps' terms Σ|x·w| + |bias| in float32,
+    under no grad."""
+    from gfnet_tpu_torch.models.common import conv_nhwc
+
+    dw, bn = blk[0], blk[1]
+    with torch.no_grad():
+        s = dw(x)
+        mul = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+        out = blk[2](bn(s))
+        terms = conv_nhwc(x.float().abs(), dw.weight.float().abs(), None, padding=2,
+                          groups=x.shape[-1]) + dw.bias.float().abs()
+    return s, mul, out, terms
+
+
+def k6_error(torch, got, want, s, mul, terms, mean=None, beta=None) -> dict:
+    """How far K6's output `got` lies from the plain chain's `want` (its s, mul
+    and terms from `k6_plain`): the share of elements that differ (NaN equal
+    to NaN), the elements beyond the tolerance, and where s or want is not
+    finite, whether the two are equal. In bf16 the tolerance is |mul|·(ulp(s)
+    + `K6_TERMS_REL`·terms) + ulp(want) (beyond the strict |mul|·ulp(s) +
+    ulp(want) reported too, with the most bf16 ulps apart), and `k6_ok`
+    also wants the share under `K6_DIFFER_SHARE`. In float32 (the
+    BatchNorm's running `mean` and `beta` given) it is |mul|·`K6_TERMS_REL`·
+    terms + `K6_F32_ROUND`·(|mul|·(|s| + |mean|) + |beta|), and any share
+    passes: the taps' order moves most sums by an ulp."""
+    g, wv = got.float(), want.float()
+    same = (g == wv) | (torch.isnan(g) & torch.isnan(wv))
+    exact = ~torch.isfinite(wv) | ~torch.isfinite(s.float())  # must match as they are
+    diff = (g - wv).abs()
+    share = float((~same).double().mean())
+    exact_equal = bool(same[exact].all())
+    row = {"dtype": str(got.dtype).removeprefix("torch."), "differ_share": share, "nonfinite": int(exact.sum()),
+           "nonfinite_equal": exact_equal}
+    if got.dtype == torch.float32:
+        sf = s.float().abs().nan_to_num(posinf=0.0)
+        tol = mul.abs() * (K6_TERMS_REL * terms + K6_F32_ROUND * (sf + mean.abs())) + K6_F32_ROUND * beta.abs()
+        over = int((~exact & (diff > tol)).sum())
+        return {**row, "max_rel_of_tolerance": float((diff / tol)[~exact].max()) if (~exact).any() else 0.0,
+                "over_tolerance": over, "k6_ok": over == 0 and exact_equal}
+    ulp = lambda t: (t.abs().contiguous().view(torch.int16) + 1).view(torch.bfloat16).float() - t.abs().float()
+    strict = mul.abs() * ulp(s) + ulp(want)
+    over = int((~exact & (diff > strict + mul.abs() * K6_TERMS_REL * terms)).sum())
+    apart = (bf16_ordinal(torch, got) - bf16_ordinal(torch, want)).abs()[~exact]
+    return {**row, "max_ulps": int(apart.max()) if apart.numel() else 0, "over_tolerance": over,
+            "over_strict_tolerance": int((~exact & (diff > strict)).sum()),
+            "k6_ok": over == 0 and exact_equal and share < K6_DIFFER_SHARE}
+
+
+def k6_check(torch, kernels, blk, x) -> dict:
+    """K6 on x against `blk`'s plain chain (`k6_error`), run twice: the
+    error, whether the runs agree bit for bit, the largest |difference|."""
+    dw, bn = blk[0], blk[1]
+    params = (dw.weight, dw.bias, bn.running_mean, bn.running_var, bn.weight, bn.bias)
+    with torch.no_grad():
+        got, again = kernels.refine_block(x, *params, bn.eps), kernels.refine_block(x, *params, bn.eps)
+        s, mul, want, terms = k6_plain(torch, blk, x)
+        err = k6_error(torch, got, want, s, mul, terms, bn.running_mean, bn.bias)
+    return {"bitwise_repeatable": bool(torch.equal(got, again)), **err,
+            "max_abs_err": float((got.float() - want.float()).abs().nan_to_num().max())}
+
+
+def phase_k6(torch) -> dict:
+    """K6 at `K6_SHAPES` against the plain chain (the card test's gates:
+    `k6_check`) and timed in turns with it; the bound is the bytes read and
+    written (2 a bf16 element each way, and the parameters) over the memory
+    rate. Untimed, the same gates at `K6_SINGLE` in bf16 and in float32 (TF32
+    off). Returns the largest shape's row with the total of a call: each
+    shape's ms times `K6_BLOCKS`."""
+    from gfnet_tpu_torch.ops import kernels
+    from gfnet_tpu_torch.utils.profiling import PEAK_F32_FLOPS, bound
+
+    rows, sms = [], torch.cuda.get_device_properties(0).multi_processor_count
+    for i, (b, g, c) in enumerate(K6_SHAPES):
+        blk = k6_block(torch, c, "cuda", seed=i)
+        x = k6_input(torch, b, g, g, c, "cuda", seed=100 + i)
+        dw, bn = blk[0], blk[1]
+        params = (dw.weight, dw.bias, bn.running_mean, bn.running_var, bn.weight, bn.bias)
+        row = {"shape": [b, g, g, c], "tile": list(kernels.refine_plan(b, g, g, c, sms)),
+               **k6_check(torch, kernels, blk, x)}
+        with torch.no_grad():
+            row.update(timed_in_turns(torch, {"kernel": lambda: kernels.refine_block(x, *params, bn.eps),
+                                              "plain": lambda: blk[2](bn(dw(x)))}, 20))
+        n = b * g * g * c
+        nbytes = 4 * n + c * (25 + 5) * 4
+        row["bound_ms"], row["bound_by"] = bound([(K6_FLOPS * n, PEAK_F32_FLOPS)], nbytes)
+        row.update(bytes=nbytes, library_ms=None, times_bound=row["kernel_ms"] / row["bound_ms"])
+        emit("k6", **row)
+        if not (row["k6_ok"] and row["bitwise_repeatable"]):
+            raise AssertionError(f"K6 at {row['shape']}: {row}")
+        rows.append(row)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the float32 plain chain in float32
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            for i, (b, g, c) in enumerate(K6_SINGLE):
+                itemsize = torch.tensor([], dtype=dtype).element_size()
+                blk = k6_block(torch, c, "cuda", seed=200 + i, dtype=dtype)
+                x = k6_input(torch, b, g, g, c, "cuda", seed=300 + i, dtype=dtype)
+                row = {"shape": [b, g, g, c], "tile": list(kernels.refine_plan(b, g, g, c, sms, itemsize)),
+                       **k6_check(torch, kernels, blk, x)}
+                emit("k6_untimed", **row)
+                if not (row["k6_ok"] and row["bitwise_repeatable"]):
+                    raise AssertionError(f"K6 at {row['shape']} {row['dtype']}: {row}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    total = {f"call_{k}": K6_BLOCKS * sum(r[k] for r in rows) for k in ("kernel_ms", "plain_ms", "bound_ms")}
+    total["call_times_bound"] = total["call_kernel_ms"] / total["call_bound_ms"]
+    emit("k6_call", blocks_a_refiner_call=K6_BLOCKS, **total)
+    return {**rows[-1], **total}
+
+
 def phase_flagship_f32(torch, np, m) -> dict:
     """The flagship in float32 (`GFNetMatcher(ModelConfig(), dtype=torch.float32)`,
     the JAX package's `GFNetMatcher(cfg, dtype=jnp.float32)`), B = 1, one
@@ -1042,12 +1230,13 @@ def phase_flagship_f32(torch, np, m) -> dict:
                     walls.append((time.perf_counter() - t1) * 1e3)
                 passes[f"{name}_{part}_ms"] = statistics.median(walls[1:])
     want_k1 = 2 * (m.cfg.dino.depth + m.cfg.dino.decoder_cfg.num_cross_attn)
+    want_k6 = k6_launches_a_match(m.cfg)
     row = {"warp_max_abs_err": werr, "certainty_max_abs_err": cerr, "atol": E2E_ATOL,
            "warp_shape": list(wg.shape), "cpu_match_s": cpu_s, "launches": counts,
-           "expected_k1_launches": want_k1, **passes}
+           "expected_k1_launches": want_k1, "expected_k6_launches": want_k6, **passes}
     emit("flagship_f32", **row)
-    if counts["oneshot_attention"] != want_k1:
-        raise AssertionError(f"float32 flagship: K1 launches {counts}, expected {want_k1}")
+    if counts["oneshot_attention"] != want_k1 or counts["refine_block"] != want_k6:
+        raise AssertionError(f"float32 flagship: launches {counts}, expected K1 {want_k1}, K6 {want_k6}")
     if not (werr <= E2E_ATOL and cerr <= E2E_ATOL):
         raise AssertionError(f"float32 flagship CUDA vs CPU: warp {werr}, certainty {cerr} > {E2E_ATOL}")
     return row
@@ -1911,7 +2100,7 @@ def phase_trainer(torch, np, m) -> dict:
     cross = cfg.dino.decoder_cfg.num_cross_attn
     # the feature extraction and each refiner run twice (recomputed in backward)
     want = {"oneshot_attention": cfg.dino.depth + 2 * cross, "local_corr": 2 * with_grad,
-            "local_corr_bwd": with_grad, "kde": 0, "residual_norm": 3 * cfg.dino.depth + 1}
+            "local_corr_bwd": with_grad, "kde": 0, "residual_norm": 3 * cfg.dino.depth + 1, "refine_block": 0}
     before = {k: v.detach().clone() for k, v in m.head.state_dict().items()}
     rng = np.random.default_rng(9)
     log: list = []
@@ -2302,6 +2491,7 @@ def main() -> int:
         flag, matcher, candidates = timed("flagship", phase_flagship, torch, np)
         k4 = timed("k4", phase_k4, torch, info["exp_per_s"], candidates)
         k5 = timed("k5", phase_k5, torch)
+        k6 = timed("k6", phase_k6, torch)
         timed("flagship_f32", phase_flagship_f32, torch, np, matcher)
         acc_launches = timed("accuracy", phase_accuracy, torch, matcher)
         with tempfile.TemporaryDirectory() as d:  # the data phase's directories, read again by orbax
@@ -2339,6 +2529,8 @@ def main() -> int:
          flag["launches"]),
         ("residual_norm", k5, "gfnet_tpu_torch/csrc/residual_norm.cu",
          "none (gfnet_tpu/models/vit.py's norms, LayerScale and adds are left to XLA)", flag["launches"]),
+        ("refine_block", k6, "gfnet_tpu_torch/csrc/refine_block.cu",
+         "none (gfnet_tpu/models/refiner.py's depthwise conv, BatchNorm and ReLU are left to XLA)", flag["launches"]),
     ):
         shape = row.get("shape") or {k: row[k] for k in ("query", "grad", "target", "radius", "target_dtype")
                                      if k in row}

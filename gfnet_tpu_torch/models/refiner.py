@@ -10,7 +10,8 @@ Counterpart of the plain path of `gfnet_tpu/models/refiner.py:369-435`
     K3) to the query features but not to target or flow (ref
     `disable_local_corr_grad=True`);
   - `block1` and the hidden blocks (depthwise 5x5 in float32 → BN → ReLU →
-    1x1), then `out_conv` in float32 → (Δflow, Δcertainty).
+    1x1; at inference on the card the first three are one launch of kernel
+    K6), then `out_conv` in float32 → (Δflow, Δcertainty).
 In train mode (`nn.Module.train()`) the BatchNorms use batch statistics
 (momentum 0.01, flax 0.99), the local correlation takes float32 operands and
 each hidden block is recomputed in backward, as the JAX forward does under
@@ -27,6 +28,7 @@ import torch.nn as nn
 
 from gfnet_tpu_torch.core.geometry import normalized_grid
 from gfnet_tpu_torch.models.common import Act, BatchNorm, Conv, checkpoint_module
+from gfnet_tpu_torch.ops import kernels
 from gfnet_tpu_torch.ops.local_correlation import local_correlation
 from gfnet_tpu_torch.ops.resize import interpolate
 from gfnet_tpu_torch.ops.sampler import grid_sample
@@ -34,14 +36,31 @@ from gfnet_tpu_torch.ops.sampler import grid_sample
 Tensor = torch.Tensor
 
 
-def refine_block(features: int, kernel: int, dtype: torch.dtype) -> nn.Sequential:
-    """depthwise KxK conv → BN → ReLU → 1x1 conv (ref `network.py:505-531`)."""
-    return nn.Sequential(
-        Conv(features, features, kernel, depthwise=True, dtype=dtype),
-        BatchNorm(features),
-        Act("relu", dtype),
-        Conv(features, features, 1, dtype=dtype),
-    )
+class RefineBlock(nn.Sequential):
+    """depthwise KxK conv → BN → ReLU → 1x1 conv (ref `network.py:505-531`),
+    the modules `0`, `1`, `2`, `3`. On CUDA in eval mode the first three are
+    one K6 launch (`ops/kernels.refine_block`, the plain chain's roundings in
+    the block's dtype, bf16 or float32), then `3`; K6 raises on what it
+    cannot take (a kernel other than 5x5, grad through it). On the CPU, and
+    in training with its batch statistics, recomputation and backward, the
+    four modules run in turn."""
+
+    def __init__(self, features: int, kernel: int, dtype: torch.dtype):
+        super().__init__(
+            Conv(features, features, kernel, depthwise=True, dtype=dtype),
+            BatchNorm(features),
+            Act("relu", dtype),
+            Conv(features, features, 1, dtype=dtype),
+        )
+
+    def forward(self, x: Tensor) -> Tensor:
+        if not x.is_cuda or self.training:
+            return super().forward(x)
+        dw, bn = self[0], self[1]
+        y = kernels.refine_block(x.to(dw.compute_dtype).contiguous(), dw.weight.float(), dw.bias.float(),
+                                 bn.running_mean.float(), bn.running_var.float(), bn.weight.float(),
+                                 bn.bias.float(), bn.eps)
+        return self[3](y)
 
 
 class ConvRefiner(nn.Module):
@@ -54,9 +73,9 @@ class ConvRefiner(nn.Module):
         self.hidden_dim, self.radius = hidden_dim, radius
         self.compute_dtype = dtype
         self.disp_emb = Conv(2, displacement_dim, 1, dtype=dtype)
-        self.block1 = refine_block(hidden_dim, kernel_size, dtype)
+        self.block1 = RefineBlock(hidden_dim, kernel_size, dtype)
         self.hidden_blocks = nn.Sequential(
-            *(refine_block(hidden_dim, kernel_size, dtype) for _ in range(hidden_blocks))
+            *(RefineBlock(hidden_dim, kernel_size, dtype) for _ in range(hidden_blocks))
         )
         self.out_conv = Conv(hidden_dim, 3, 1, dtype=torch.float32)
 

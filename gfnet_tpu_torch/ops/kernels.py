@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 The sources under `gfnet_tpu_torch/csrc/` (K1 attention, K2 local correlation,
-K3, its gradient in the query, K4, the sampler's kernel density estimate, and
-K5, the ViT block's residual stream) compile at first use into one shared
+K3, its gradient in the query, K4, the sampler's kernel density estimate,
+K5, the ViT block's residual stream, and K6, the refiner block's depthwise
+conv, BatchNorm and ReLU) compile at first use into one shared
 library with a plain C interface, loaded with `ctypes`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c <src>.cu
@@ -19,10 +20,12 @@ current stream of the tensors' device (which the library makes current in
 the calling thread: autograd runs backward on threads of its own), raises
 if the launch failed, and counts the launch in the recorder of
 `utils/profiling.py` (`k1.launches`, `k2.launches`, `k3.launches`,
-`k4.launches`, `k5.launches`; `launch_counts()` reads them). Nothing here
-falls back to a plain PyTorch version: the callers in `ops/attention.py`,
-`ops/local_correlation.py`, `ops/kde.py` and `ops/residual_norm.py` take the
-plain version only for CPU tensors.
+`k4.launches`, `k5.launches`, `k6.launches`; `launch_counts()` reads them).
+Nothing here falls back to a plain PyTorch version: the callers in
+`ops/attention.py`, `ops/local_correlation.py`, `ops/kde.py`,
+`ops/residual_norm.py` and `models/refiner.py` take the plain version only
+for CPU tensors, and `models/refiner.py` also in training (batch statistics
+and backward, which K6 has not).
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ Tensor = torch.Tensor
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("oneshot_attention.cu", "local_corr.cu", "local_corr_bwd.cu", "kde.cu", "residual_norm.cu")
+SOURCES = ("oneshot_attention.cu", "local_corr.cu", "local_corr_bwd.cu", "kde.cu", "residual_norm.cu",
+           "refine_block.cu")
 HEADERS = ("local_corr_window.cuh",)  # included by the sources; hashed with them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -116,6 +120,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gfnet_kde.restype = i
     lib.gfnet_residual_norm.argtypes = [i, p, p, p, p, p, p, p, ll, i, f, i, p]
     lib.gfnet_residual_norm.restype = i
+    lib.gfnet_refine_block.argtypes = [i, i] + [p] * 8 + [i] * 7 + [f, p]
+    lib.gfnet_refine_block.restype = i
+    lib.gfnet_refine_block_occupancy.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.gfnet_refine_block_occupancy.restype = i
 
 
 def load_library() -> ctypes.CDLL:
@@ -538,13 +546,134 @@ def residual_norm(x: Tensor, h: Tensor | None = None, gamma: Tensor | None = Non
     return s, n
 
 
+REFINE_TAPS = 5  # K6's depthwise kernel: 5 x 5, zero padding 2
+REFINE_PIXELS = 8  # output pixels a thread of K6 takes along a row
+REFINE_TILE_ROWS = (8, 4, 2, 1)  # output rows a tile: the kernel's instantiations (1 in float32 only)
+REFINE_SPLIT_ROWS = 2  # the fewest rows a tile is cut to for more tiles; 1 only where no taller stage fits
+REFINE_TILE_PIXELS = (64, 32, 16, 8)  # output pixels a tile along a row, multiples of REFINE_PIXELS
+REFINE_MAX_THREADS = 512
+REFINE_SHARED_SM_THREADS = 256  # a block this small shares its SM with another (128 registers a thread)
+REFINE_SMEM_BUDGET = 112 * 1024  # a stage of K6's staged halo; a block holds two
+REFINE_TILES_PER_SM = 2  # tiles an SM the plan cuts a small call's tiles to reach
+REFINE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def refine_threads(pixels: int, c: int) -> int:
+    """Threads of a K6 block whose tile is `pixels` wide: one for each channel
+    and `REFINE_PIXELS` pixels, to whole warps."""
+    return -(-(pixels // REFINE_PIXELS) * c // 32) * 32
+
+
+def refine_smem(rows: int, pixels: int, c: int, itemsize: int = 2) -> int:
+    """Bytes of a stage of K6's staged halo for an output tile of rows ×
+    pixels, elements of `itemsize` bytes: rows + 4 rows of (pixels + 4)·c
+    elements, each padded by up to a 16-byte vector less one element to sit
+    at its memory's offset within 16 bytes, to whole vectors (`staged_pitch`)."""
+    vec = 16 // itemsize
+    return (rows + 4) * (((pixels + 4) * c + 2 * (vec - 1)) // vec * vec) * itemsize
+
+
+@functools.lru_cache(maxsize=256)
+def refine_plan(b: int, h: int, w: int, c: int, sms: int, itemsize: int = 2) -> tuple[int, int]:
+    """(rows, pixels): K6's output tile for x (b, h, w, c) of `itemsize`-byte
+    elements (2 bf16, 4 float32) on a card of `sms` SMs. The tile is as wide
+    as `REFINE_MAX_THREADS` threads allow (one for each channel and
+    `REFINE_PIXELS` pixels), and 4 rows tall where two blocks share an SM
+    (`REFINE_SHARED_SM_THREADS`), else 8 where a stage of that height fits
+    `REFINE_SMEM_BUDGET` (halving the halo where a block has its SM to
+    itself), else 4, 2 or 1. Where that gives fewer than
+    `REFINE_TILES_PER_SM` tiles an SM, rows down to `REFINE_SPLIT_ROWS` and
+    then pixels halve (a single pair's call). The choice follows timings on
+    an H100 at the nine shapes of a batch call in bf16 (`chip_smoke.py` phase
+    k6): within 7% of the best tile at each. Raises where no tile holds c.
+    Cached: a launch's host cost."""
+    pixels = next((p for p in REFINE_TILE_PIXELS if refine_threads(p, c) <= REFINE_MAX_THREADS), None)
+    tall = pixels is not None and refine_threads(pixels, c) > REFINE_SHARED_SM_THREADS
+    rows = None if pixels is None else next(
+        (r for r in REFINE_TILE_ROWS if (tall or r <= 4) and refine_smem(r, pixels, c, itemsize) <= REFINE_SMEM_BUDGET),
+        None)
+    if rows is None:
+        raise ValueError(f"refine_block: no tile holds {c} channels of {itemsize} bytes")
+    tiles = lambda r, p: b * -(-h // r) * -(-w // p)
+    while tiles(rows, pixels) < REFINE_TILES_PER_SM * sms:
+        if rows > REFINE_SPLIT_ROWS:
+            rows //= 2
+        elif pixels > REFINE_TILE_PIXELS[-1]:
+            pixels //= 2
+        else:
+            break
+    return rows, pixels
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _refine_launch(index: int, b: int, h: int, w: int, c: int, itemsize: int) -> tuple[int, int, int]:
+    """(rows, pixels, grid) of a K6 launch on card `index`: `refine_plan`'s
+    tile, and as many blocks as there are tiles or as fit the card at once
+    (the kernel's occupancy at that tile, queried once a shape)."""
+    sms = _sms(index)
+    rows, pixels = refine_plan(b, h, w, c, sms, itemsize)
+    per_sm = ctypes.c_int(0)
+    _check(load_library().gfnet_refine_block_occupancy(index, itemsize, c, rows, pixels, ctypes.byref(per_sm)),
+           "refine_block occupancy")
+    if per_sm.value < 1:
+        raise RuntimeError(f"refine_block: no block of tile {rows}x{pixels} at {c} channels fits an SM")
+    return rows, pixels, min(b * -(-h // rows) * -(-w // pixels), per_sm.value * sms)
+
+
+def refine_block(x: Tensor, weight: Tensor, bias: Tensor, mean: Tensor, var: Tensor, bn_weight: Tensor,
+                 bn_bias: Tensor, eps: float) -> Tensor:
+    """K6: relu(T(BatchNorm(T(depthwise_conv5x5(x) + bias)))) in one launch
+    (`csrc/refine_block.cu`), the refine block's chain before its 1×1 conv at
+    inference, in x's type T (bf16 or float32) with the plain path's
+    roundings: the 25 taps in float32 (zero padding 2), the BatchNorm's
+    (s − mean)·mul + bn_bias in three float32 roundings, mul =
+    bn_weight·rsqrt(var + eps). x (B, H, W, C) contiguous NHWC; weight (C, 1,
+    5, 5), bias, the running mean and var, bn_weight and bn_bias (C,),
+    contiguous float32; all CUDA tensors, none requiring grad while grad is
+    on (K6 has no backward) → (B, H, W, C) of x's type. Anything else raises."""
+    params = (weight, bias, mean, var, bn_weight, bn_bias)
+    _require_cuda("refine_block", x, *params)
+    if x.dtype not in REFINE_DTYPES or any(p.dtype != torch.float32 for p in params):
+        raise ValueError(f"refine_block: dtypes {x.dtype}, {[p.dtype for p in params]}; "
+                         "x bf16 or float32 and the parameters float32")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+        raise ValueError("refine_block: K6 has no backward; call it under no_grad or on tensors that need no grad")
+    if x.dim() != 4 or x.numel() == 0:
+        raise ValueError(f"refine_block: x {tuple(x.shape)}; expected a non-empty (B, H, W, C)")
+    b, h, w, c = x.shape
+    if weight.shape != (c, 1, REFINE_TAPS, REFINE_TAPS):
+        raise ValueError(f"refine_block: weight {tuple(weight.shape)}; K6 takes a depthwise "
+                         f"{REFINE_TAPS}x{REFINE_TAPS} kernel, ({c}, 1, {REFINE_TAPS}, {REFINE_TAPS})")
+    if any(p.shape != (c,) for p in params[1:]):
+        raise ValueError(f"refine_block: parameter shapes {[tuple(p.shape) for p in params[1:]]}, expected ({c},)")
+    if not all(t.is_contiguous() for t in (x, *params)):
+        raise ValueError("refine_block: tensors must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("refine_block: x must be 16-byte aligned (16-byte copies)")
+    itemsize = x.element_size()
+    rows, pixels, grid = _refine_launch(x.device.index, b, h, w, c, itemsize)
+    out = torch.empty_like(x)
+    err = load_library().gfnet_refine_block(
+        x.device.index, itemsize, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), mean.data_ptr(),
+        var.data_ptr(), bn_weight.data_ptr(), bn_bias.data_ptr(), out.data_ptr(), b, h, w, c, rows, pixels, grid,
+        float(eps), _stream(x.device))
+    _check(err, "refine_block")
+    profiling.count("k6.launches")
+    return out
+
+
 COUNTERS = {"oneshot_attention": "k1.launches", "local_corr": "k2.launches", "local_corr_bwd": "k3.launches",
-            "kde": "k4.launches", "residual_norm": "k5.launches"}
+            "kde": "k4.launches", "residual_norm": "k5.launches", "refine_block": "k6.launches"}
 
 
 def reset_launch_counts() -> None:
-    """Zero the kernels' counters (`k1.*`, `k2.*`, `k3.*`, `k4.*`, `k5.*`)."""
-    profiling.reset("k1.", "k2.", "k3.", "k4.", "k5.")
+    """Zero the kernels' counters (`k1.*`, `k2.*`, `k3.*`, `k4.*`, `k5.*`, `k6.*`)."""
+    profiling.reset("k1.", "k2.", "k3.", "k4.", "k5.", "k6.")
 
 
 def launch_counts() -> dict[str, int]:

@@ -201,7 +201,8 @@ def test_local_correlation_function_matches_plain_gradient(cuda_device):
         assert tt.grad is None and ff.grad is None
         grads.append(qq.grad)
         launched = {k: v - before[k] for k, v in kernels.launch_counts().items()}
-        want = {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1, "kde": 0, "residual_norm": 0}
+        want = {"oneshot_attention": 0, "local_corr": 1, "local_corr_bwd": 1, "kde": 0, "residual_norm": 0,
+                "refine_block": 0}
         assert launched == (want if fn is local_correlation else dict.fromkeys(want, 0))
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
 
@@ -498,6 +499,179 @@ def test_a_vit_forward_runs_every_block_through_k5(cuda_device, monkeypatch):
     assert torch.isfinite(got).all()
     assert float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)) < 2e-2
 
+
+
+# ------------------------- K6, the refine block's depthwise conv, BatchNorm and ReLU
+# (G, C) of every refiner call: pass 1 at 448², pass 2 at 560²
+K6_GRIDS = [(32, 417), (32, 361), (64, 177), (128, 73), (256, 24), (40, 361), (80, 177), (160, 73), (320, 24)]
+# grids that are no tile's multiple, one narrower than the taps
+K6_RAGGED = [(3, 37, 29, 73), (1, 5, 3, 24), (2, 19, 33, 417)]
+
+
+def _k6_params(blk):
+    dw, bn = blk[0], blk[1]
+    return (dw.weight, dw.bias, bn.running_mean, bn.running_var, bn.weight, bn.bias), bn.eps
+
+
+K6_DTYPES = [torch.bfloat16, torch.float32]
+
+
+@pytest.mark.parametrize("dtype", K6_DTYPES)
+@pytest.mark.parametrize("b,h,w,c", [(b, g, g, c) for b in (16, 2) for g, c in K6_GRIDS] + K6_RAGGED)
+def test_refine_block_matches_plain(cuda_device, monkeypatch, b, h, w, c, dtype):
+    """K6 against the plain chain (TF32 off) on the card, in bf16 and in
+    float32: in bf16 at most 1% of outputs differ, each by no more than
+    |mul|·ulp(s) + ulp(out) plus the float32 rounding of the taps' terms; in
+    float32 each within that rounding and the BatchNorm's own
+    (`chip_smoke.k6_error`); one launch, two runs bit for bit."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    blk = chip_smoke.k6_block(torch, c, cuda_device, seed=c, dtype=dtype)
+    x = chip_smoke.k6_input(torch, b, h, w, c, cuda_device, seed=b * h, dtype=dtype)
+    before = kernels.launch_counts()["refine_block"]
+    row = chip_smoke.k6_check(torch, kernels, blk, x)
+    assert kernels.launch_counts()["refine_block"] == before + 2
+    assert row["dtype"] == str(dtype).removeprefix("torch.") and row["bitwise_repeatable"]
+    assert row["k6_ok"], row
+    params, eps = _k6_params(blk)
+    with torch.no_grad():
+        got = kernels.refine_block(x, *params, eps)
+    assert got.dtype == dtype and got.shape == x.shape
+
+
+@pytest.mark.parametrize("dtype", K6_DTYPES)
+@pytest.mark.parametrize("b,h,w,c", [(16, 40, 40, 361), (2, 32, 32, 417)] + K6_RAGGED)
+def test_refine_block_is_the_plain_chain_bit_for_bit_where_the_taps_sum_exactly(cuda_device, monkeypatch, b, h, w,
+                                                                                 c, dtype):
+    """With small integer inputs and taps and a bias in eighths, every sum of
+    taps is exact in float32 in any order: K6 then equals the plain chain at
+    every element, in bf16 and in float32, the map's edges (taps off the map
+    read zero), a ragged tile's and the BatchNorm's scale, computed in the
+    kernel, included."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    blk = chip_smoke.k6_block(torch, c, cuda_device, seed=c + 1, dtype=dtype)
+    gen = torch.Generator(cuda_device).manual_seed(h * w)
+    with torch.no_grad():
+        blk[0].weight.copy_(torch.randint(-8, 9, blk[0].weight.shape, generator=gen, device=cuda_device) / 8)
+        blk[0].bias.copy_(torch.randint(-8, 9, (c,), generator=gen, device=cuda_device) / 8)
+    x = torch.randint(-4, 5, (b, h, w, c), generator=gen, device=cuda_device).to(dtype)
+    params, eps = _k6_params(blk)
+    with torch.no_grad():
+        got = kernels.refine_block(x, *params, eps)
+        want = blk[2](blk[1](blk[0](x)))
+    assert torch.equal(got, want)
+    ones = torch.ones_like(x)
+    with torch.no_grad():
+        assert torch.equal(kernels.refine_block(ones, *params, eps), blk[2](blk[1](blk[0](ones))))
+
+
+@pytest.mark.parametrize("dtype", K6_DTYPES)
+def test_refine_block_propagates_nan_and_inf(cuda_device, monkeypatch, dtype):
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    b, g, c = 2, 40, 73
+    blk = chip_smoke.k6_block(torch, c, cuda_device, seed=5, dtype=dtype)
+    x = chip_smoke.k6_input(torch, b, g, g, c, cuda_device, seed=6, dtype=dtype)
+    x[0, 3, 4, 7] = float("nan")
+    x[0, 20, 30, 7] = float("inf")
+    x[1, 0, 0, 70] = float("-inf")  # a corner: its window is cut by the map's edge
+    x[1, 10, 10, :] = float("inf")
+    x[1, 12, 11, :] = float("-inf")  # +inf and -inf in one window: NaN
+    params, eps = _k6_params(blk)
+    with torch.no_grad():
+        got = kernels.refine_block(x, *params, eps)
+    s, mul, want, terms = chip_smoke.k6_plain(torch, blk, x)
+    err = chip_smoke.k6_error(torch, got, want, s, mul, terms, blk[1].running_mean, blk[1].bias)
+    assert err["k6_ok"] and err["nonfinite"] > 0 and err["nonfinite_equal"], err
+    assert torch.isnan(got.float()).any() and torch.isinf(got.float()).any()
+
+
+def test_refine_block_refuses_what_it_cannot_read(cuda_device):
+    import chip_smoke
+
+    b, g, c = 2, 8, 24
+    blk = chip_smoke.k6_block(torch, c, cuda_device)
+    x = chip_smoke.k6_input(torch, b, g, g, c, cuda_device)
+    (w, bias, mean, var, bnw, bnb), eps = _k6_params(blk)
+    good = dict(x=x, weight=w, bias=bias, mean=mean, var=var, bn_weight=bnw, bn_bias=bnb)
+    strided = torch.empty((b, g, g, 2 * c), dtype=x.dtype, device=cuda_device)[..., :c].copy_(x)
+    misaligned = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda_device)[1:1 + x.numel()].view(x.shape)
+    w3 = torch.zeros((c, 1, 3, 3), device=cuda_device)
+    for bad, match in ((dict(x=strided), "contiguous"), (dict(x=misaligned.copy_(x)), "aligned"),
+                       (dict(x=x.half()), "dtypes"), (dict(x=x.double()), "dtypes"),
+                       (dict(weight=w.double()), "dtypes"), (dict(weight=w3), "5x5"),
+                       (dict(x=x[..., :12].contiguous()), "5x5"), (dict(mean=mean[:12]), "parameter shapes"),
+                       (dict(x=x[0]), "expected a non-empty"), (dict(x=x[:0]), "expected a non-empty"),
+                       (dict(bias=bias.clone().requires_grad_()), "no backward"),
+                       (dict(x=x.clone().requires_grad_()), "no backward")):
+        args = {**good, **bad}
+        before = kernels.launch_counts()["refine_block"]
+        with pytest.raises(ValueError, match=match):
+            kernels.refine_block(*args.values(), eps)
+        assert kernels.launch_counts()["refine_block"] == before
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.refine_block(*(t.cpu() for t in good.values()), eps)
+    with torch.no_grad():  # where grad is off, a parameter that requires grad is read
+        kernels.refine_block(*{**good, "bias": bias.clone().requires_grad_()}.values(), eps)
+
+
+@pytest.mark.parametrize("dtype", K6_DTYPES)
+def test_a_refiner_forward_runs_every_block_through_k6(cuda_device, monkeypatch, dtype):
+    """One refiner call at scale 1 of a pass (eval, grad off), in bf16 and in
+    float32: nine K6 launches, no float32 tensor the size of the blocks'
+    activations inside a bf16 block, and the output within rounding of the
+    same refiner with its blocks on the plain chain; in train mode none; in
+    eval with grad on through parameters that require it, K6 refuses."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from gfnet_tpu_torch.models import refiner as refiner_module
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    torch.manual_seed(0)
+    ref = refiner_module.ConvRefiner(24, 8, 0, dtype=dtype)
+    with torch.no_grad():
+        for name, p in ref.named_parameters():
+            p.normal_(1.0 if name.endswith("1.weight") else 0.0, 0.2)  # BatchNorm weights about 1
+    ref = ref.to(cuda_device).eval()
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    b, g = 2, 32
+    f0, f1 = (torch.randn((b, 64, 64, 8), generator=gen, device=cuda_device).to(dtype) for _ in range(2))
+    flow = torch.rand((b, g, g, 2), generator=gen, device=cuda_device) * 1.8 - 0.9
+    made = []
+
+    class Float32Activations(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and t.dtype == torch.float32 and t.numel() >= b * g * g * 24:
+                    made.append(str(func))
+            return out
+
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = ref(f0, f1, flow)
+        d = torch.randn((b, g, g, 24), generator=gen, device=cuda_device).to(dtype)
+        with Float32Activations():
+            ref.block1(d)
+    assert kernels.launch_counts()["refine_block"] == 9 + 1 and (made == [] or dtype == torch.float32)
+    monkeypatch.setattr(refiner_module.RefineBlock, "forward", torch.nn.Sequential.forward)
+    with torch.no_grad():
+        want = ref(f0, f1, flow)
+    assert kernels.launch_counts()["refine_block"] == 10
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        limit = 2e-2 if dtype == torch.bfloat16 else 1e-4  # bf16 rounding; float32's taps' order
+        assert float(torch.linalg.vector_norm(a - w) / torch.linalg.vector_norm(w)) < limit
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="no backward"):
+        ref(f0, f1, flow)
+    ref.train()
+    ref(f0, f1, flow)[0].sum().backward()
+    assert kernels.launch_counts()["refine_block"] == 10
 
 # --------------------------------------------- the dataset path on the card
 def _texture_u8(seed: int, h: int, w: int) -> torch.Tensor:
